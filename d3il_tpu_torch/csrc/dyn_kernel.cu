@@ -1,8 +1,10 @@
-// Arm dynamics kernels for Hopper (sm_90a): ik_window (K1) and arm_stage (K2).
+// Arm dynamics kernels for Hopper (sm_90a): ik_window (K1), arm_stage (K2)
+// and feedforward (K4).
 //
 // ik_window replaces the JAX package's engine/dyn_kernel.py:ik_window_bm
 // (Pallas body _make_ik_window_kernel); arm_stage replaces
-// engine/dyn_kernel.py:arm_stage_bm (_make_arm_kernel). The TPU kernels put
+// engine/dyn_kernel.py:arm_stage_bm (_make_arm_kernel); feedforward replaces
+// engine/dyn_kernel.py:feedforward_bm (_make_ff_kernel). The TPU kernels put
 // one env per vector lane and unroll the chain into immediates; here each
 // env is one thread that walks the chain tables (dyn_scalar.cuh) at run
 // time, so one set of device functions serves both chains.
@@ -15,7 +17,10 @@
 //   arm_stage: ~14.5 k flop per env against ~1.25 KB (q, qd, setpoints in;
 //     17 body poses, 9 dof frames and the 9 x 9 inverse out), ~12 flop per
 //     byte, below the card's FP32 balance of ~20: bytes bound it.
-// Both run far above that bound: one thread walks the chain serially, with
+//   feedforward: one FK + one RNEA pass on the 7-dof control chain, ~6.6 k
+//     flop per env against 112 B (three [7] vectors in, one out), ~59 flop
+//     per byte, above the card's FP32 balance of ~20: operations bound it.
+// All run far above that bound: one thread walks the chain serially, with
 // its per-body arrays in local memory, so latency is what limits them now.
 // Design: batch-minor ([.., B]) layout so neighbouring threads touch
 // neighbouring addresses on every load and store; the 35-substep loop of
@@ -279,6 +284,33 @@ __global__ void ik_window_kernel(const __grid_constant__ ChainTab ch,
 }
 
 // ---------------------------------------------------------------------------
+// K4: control-model feedforward (dyn_kernel._make_ff_kernel):
+// tau = M(q) qdd + C(q, qd) on the control chain, one FK + one RNEA pass with
+// g = 0. The same device functions K1 runs at the end of each substep.
+// ---------------------------------------------------------------------------
+__global__ void ff_kernel(const __grid_constant__ ChainTab ch, int B,
+                          const float* __restrict__ q_in, const float* __restrict__ qd_in,
+                          const float* __restrict__ qdd_in, float* __restrict__ tau_o) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= B) return;
+  const int nv = ch.nv;
+  float q[D3_MAXV], qd[D3_MAXV], qdd[D3_MAXV], tau[D3_MAXV];
+  for (int d = 0; d < nv; ++d) {
+    size_t o = (size_t)d * B + e;
+    q[d] = q_in[o];
+    qd[d] = qd_in[o];
+    qdd[d] = qdd_in[o];
+  }
+  v3 xpos[D3_MAXB], axes[D3_MAXV], anchors[D3_MAXV];
+  qt xquat[D3_MAXB];
+  const v3 zero = {0.0f, 0.0f, 0.0f};
+  fk_d(ch, q, xpos, xquat);
+  dof_frames_d(ch, xpos, xquat, axes, anchors);
+  rnea_d(ch, xpos, xquat, axes, anchors, qd, qdd, zero, tau, nullptr, nullptr);
+  for (int d = 0; d < nv; ++d) tau_o[(size_t)d * B + e] = tau[d];
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes): launch on the caller's stream, return the launch
 // status. Pointers are device pointers; the tables are host structs passed
 // by value into the kernel's constant parameter bank.
@@ -308,6 +340,14 @@ extern "C" int d3il_ik_window(const ChainTab* ch, const CartParams* C, int B, in
   ik_window_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       *ch, *C, B, n_sub, q_virt, old_vel, des_pos, des_quat, qv_out, ov_out, q_des, qd_des,
       tau);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int d3il_feedforward(const ChainTab* ch, int B, const float* q, const float* qd,
+                                const float* qdd, float* tau, void* stream) {
+  if (ch->nv > D3_MAXV || ch->nb > D3_MAXB) return (int)cudaErrorInvalidValue;
+  int blocks = (B + kThreads - 1) / kThreads;
+  ff_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*ch, B, q, qd, qdd, tau);
   return (int)cudaGetLastError();
 }
 

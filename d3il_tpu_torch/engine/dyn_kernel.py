@@ -1,4 +1,4 @@
-"""Arm dynamics kernels: IK window (K1) and arm stage (K2).
+"""Arm dynamics kernels: IK window (K1), arm stage (K2), feedforward (K4).
 
 Counterpart of ``d3il_tpu/engine/dyn_kernel.py``. Each kernel has three
 parts here:
@@ -8,7 +8,8 @@ parts here:
     mirror ``csrc/dyn_scalar.cuh`` / ``csrc/dyn_kernel.cu``;
   * the plain PyTorch version, the scalar algebra of ``dyn_scalar.py`` on
     [B] tensors;
-  * the wrapper (``ik_window_bm``, ``arm_stage_bm``): on CPU tensors it runs
+  * the wrapper (``ik_window_bm``, ``arm_stage_bm``, ``feedforward_bm``): on
+    CPU tensors it runs
     the plain version; on CUDA tensors it launches the hand-written kernel
     (``csrc/dyn_kernel.cu``) or raises. ``<wrapper>.launches`` counts kernel
     launches.
@@ -183,6 +184,9 @@ def _lib():
             ctypes.POINTER(ChainTab), ctypes.POINTER(CartParams), ctypes.c_int,
             ctypes.c_int, *([_P] * 9), _P]
         lib.d3il_ik_window.restype = ctypes.c_int
+        lib.d3il_feedforward.argtypes = [ctypes.POINTER(ChainTab),
+                                         ctypes.c_int, *([_P] * 4), _P]
+        lib.d3il_feedforward.restype = ctypes.c_int
         lib._d3il_ready = True
     return lib
 
@@ -333,3 +337,38 @@ def ik_window_bm(spec: IkSpec, n_sub: int, q_virt, old_vel, des_pos,
 
 
 ik_window_bm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: control-model feedforward
+# ---------------------------------------------------------------------------
+
+def feedforward_plain(spec: IkSpec, q_des, qd_des, qdd_des):
+    """Plain version of the feedforward (dyn_kernel._make_ff_kernel): one FK
+    and one zero-gravity RNEA pass on the control chain."""
+    chain = spec.ctrl_chain
+    q, qd, qdd = ([x[i] for i in range(chain.nv)]
+                  for x in (q_des, qd_des, qdd_des))
+    xpos, xquat = dsc.fk_s(chain, q)
+    tau = dsc.rnea_s(chain, xpos, xquat, q, qd, qdd, gravity=(0.0, 0.0, 0.0))
+    return _stack(tau, q_des[0])
+
+
+def feedforward_bm(spec: IkSpec, q_des, qd_des, qdd_des):
+    """M(q_des) qdd_des + C(q_des, qd_des) on the control chain
+    (joint_pd.model_feedforward), batch-minor: inputs and result [7, B]."""
+    if q_des.device.type == "cpu":
+        return feedforward_plain(spec, q_des, qd_des, qdd_des)
+    nv, B = spec.ctrl_chain.nv, q_des.shape[-1]
+    build.check_inputs({"q_des": (q_des, (nv,)), "qd_des": (qd_des, (nv,)),
+                        "qdd_des": (qdd_des, (nv,))}, B, q_des.device)
+    tau = torch.empty((nv, B), dtype=torch.float32, device=q_des.device)
+    status = _lib().d3il_feedforward(
+        ctypes.byref(spec.chain_tab), B, q_des.data_ptr(), qd_des.data_ptr(),
+        qdd_des.data_ptr(), tau.data_ptr(), build.stream_of(q_des.device))
+    build.check(status, "feedforward launch")
+    feedforward_bm.launches += 1
+    return tau
+
+
+feedforward_bm.launches = 0

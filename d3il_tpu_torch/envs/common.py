@@ -54,8 +54,6 @@ class RodTaskParams:
     def __init__(self, scene: SceneModel, n_substeps: int, max_steps: int,
                  init_ee_pos=None, init_ee_quat=None, kinematic: bool = False,
                  device=None, q_init=None):
-        if kinematic:
-            raise NotImplementedError("kinematic=True is not ported yet")
         self.device = resolve_device(device)
         self.scene = scene
         self.kinematic = kinematic

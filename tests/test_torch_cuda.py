@@ -113,3 +113,61 @@ def test_contact_kernel_matches_plain(cuda_device):
     # test_contact_kernel.py:116-117
     assert _scaled_err(f, f_ref) <= 2e-4
     assert _scaled_err(qfrc, q_ref) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_contact_kernel_matches_plain_kinematic(cuda_device):
+    """K3 on the kinematic mode's inputs (zero arm inverse mass and smooth
+    acceleration, plain-FK frames, finite-difference arm velocity) at a
+    batch that fills no whole block, the rod beamed into the red box."""
+    B = 77
+    params = pushing.PushingParams(n_substeps=2, device="cpu", q_init=Q_INIT,
+                                   kinematic=True)
+    gen = torch.Generator().manual_seed(6)
+    state = pushing.reset(params, pushing.sample_context(gen, B))
+    st = params.statics
+    sb = substep_bm.scene_to_bm(state.scene)
+    tcp, _ = params.tcp_pose(state.scene)
+    # put the red box under the rod tip so the rod rows carry force
+    free_pos = sb.free_pos.clone()
+    free_pos[0, :2] = tcp[:, :2].T + 0.02
+    sb = sb._replace(free_pos=free_pos)
+    q_des = sb.q[:7] + 0.002 * torch.randn(7, B, generator=gen)
+    q_new, qd_new = substep_bm.kinematic_target(st, sb, q_des,
+                                                torch.full((B,), 0.04))
+    sb = sb._replace(q=q_new.contiguous(), qd=qd_new.contiguous())
+    arm = substep_bm.beam_arm_out(st, sb.q)
+    assert arm[4].shape == (9, 9, B) and not arm[4].any()
+    args = substep_bm.contact_inputs(st, sb, arm)
+    f_ref, q_ref = contact_kernel.phase_batched_bm(st.contact, *args)
+    tables = contact_kernel.ContactTables(st.meta, cuda_device)
+    f, qfrc = contact_kernel.phase_batched_bm(
+        tables, *(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert f_ref.abs().max() > 1e-3
+    assert _scaled_err(f, f_ref) <= 2e-4
+    assert _scaled_err(qfrc, q_ref) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_feedforward_kernel_matches_plain(cuda_device):
+    B = 256
+    rng = np.random.default_rng(5)
+    # test_dyn_kernel.py:164-166
+    ins = [rng.uniform(-1.5, 1.5, (7, B)), rng.standard_normal((7, B)),
+           3.0 * rng.standard_normal((7, B))]
+    ins = [torch.from_numpy(x.astype(np.float32)) for x in ins]
+    spec = dyn_kernel.IkSpec(panda.build_control_chain(),
+                             gains.CartPosQuatGains(), 1e-3)
+    ref = dyn_kernel.feedforward_bm(spec, *ins)
+    n0 = dyn_kernel.feedforward_bm.launches
+    out = dyn_kernel.feedforward_bm(spec, *(x.to(cuda_device) for x in ins))
+    torch.cuda.synchronize()
+    assert dyn_kernel.feedforward_bm.launches == n0 + 1
+    assert ref.abs().max() > 1.0
+    # test_dyn_kernel.py:169-171
+    assert _scaled_err(out, ref) <= 3e-4
+    with pytest.raises(ValueError, match="shape"):
+        dyn_kernel.feedforward_bm(spec, ins[0].to(cuda_device),
+                                  ins[1][:6].to(cuda_device),
+                                  ins[2].to(cuda_device))

@@ -1,16 +1,18 @@
 """Port arm kernels' plain versions == the JAX package's arm kernels.
 
-K2 (arm stage) at B = 8 against the Pallas kernel in interpret mode, and K1
-(IK window) over a 2-substep window against the JAX window's jnp reference,
-with the tolerances of tests/test_dyn_kernel.py. Inputs are NumPy draws from a
-seed, handed to both sides. The CUDA kernels themselves are held against
-these plain versions by tests/test_torch_cuda.py and chip_smoke.py.
+K2 (arm stage) and K4 (feedforward) at B = 8 against the bodies of the
+Pallas kernels, run op by op on the CPU (test_torch_jaxref.EagerRef), K4
+also against the jnp feedforward, and K1 (IK window) over a 2-substep window
+against the JAX window's jnp reference, with the tolerances of
+tests/test_dyn_kernel.py. Inputs are NumPy draws from a seed, handed to both
+sides. The CUDA kernels themselves are held against these plain versions by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 import numpy as np
 import jax.numpy as jnp
 import torch
 
-from test_torch_jaxref import assert_scaled
+from test_torch_jaxref import assert_scaled, run_kernel_body
 
 from d3il_tpu.control.gains import CartPosQuatGains as JCartGains
 from d3il_tpu.control.gains import JointPDGains as JPDGains
@@ -50,10 +52,11 @@ def _ik_inputs(B, seed):
 
 
 def _arm_reference(ins):
-    scene = jscenes.build_pushing_scene()
-    return jdyn_kernel.arm_stage_bm(scene, JPDGains(),
-                                    *(jnp.asarray(x) for x in ins),
-                                    interpret=True)
+    """The body of the Pallas arm-stage kernel on the inputs as they are
+    ([.., B]: the tile is the whole batch)."""
+    kernel, _, _ = jdyn_kernel._make_arm_kernel(jscenes.build_pushing_scene(),
+                                                JPDGains())
+    return run_kernel_body(kernel, ins, 7)
 
 
 # test_dyn_kernel.py:73-79: max-scaled absolute error per output
@@ -118,6 +121,44 @@ def test_ik_window_plain_matches_jax_window():
     np.testing.assert_allclose(qddes.numpy(), qddes_r, atol=3e-2)
     np.testing.assert_allclose(ov.numpy(), ov_r, atol=3e-2)
     assert_scaled(tau.numpy(), tau_r, 2e-3, "tau_model")
+
+
+def _ff_inputs(B, seed):
+    """test_dyn_kernel.py:164-166: q uniform in +-1.5, qd ~ N(0, 1),
+    qdd ~ 3 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return [x.astype(np.float32) for x in (
+        rng.uniform(-1.5, 1.5, (7, B)), rng.standard_normal((7, B)),
+        3.0 * rng.standard_normal((7, B)))]
+
+
+def _ff_port(ins):
+    spec = dyn_kernel.IkSpec(panda.build_control_chain(),
+                             gains.CartPosQuatGains(), 1e-3)
+    return dyn_kernel.feedforward_bm(
+        spec, *(torch.from_numpy(x) for x in ins)).numpy()
+
+
+def test_feedforward_plain_matches_pallas():
+    """K4 against the body of the Pallas feedforward kernel; 3e-4 scaled
+    (test_dyn_kernel.py:169-171)."""
+    ins = _ff_inputs(8, 0)
+    kernel, _ = jdyn_kernel._make_ff_kernel(jpanda.build_control_chain())
+    ref, = run_kernel_body(kernel, ins, 1)
+    assert_scaled(_ff_port(ins), ref, 3e-4, "tau")
+
+
+def test_feedforward_plain_matches_jnp_feedforward():
+    """K4 against model_feedforward_bm, the jnp pipeline the JAX package
+    holds its kernel to; 3e-4 scaled. B = 16 is the folded width of the IK
+    window test above, so the jnp ops compile once for both."""
+    from d3il_tpu.engine import substep_bm as jsubstep_bm
+    ins = _ff_inputs(16, 1)
+    ref = jsubstep_bm.model_feedforward_bm(
+        jpanda.build_control_chain(), *(jnp.asarray(x) for x in ins))
+    out = _ff_port(ins)
+    assert np.abs(out).max() > 1.0        # the torques are not trivially 0
+    assert_scaled(out, np.asarray(ref), 3e-4, "tau")
 
 
 def test_chain_tables_pack_the_chains():

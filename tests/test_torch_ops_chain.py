@@ -6,6 +6,7 @@ arrays are built by the same host code and must be equal exactly; FK and
 the point Jacobian agree to 1e-5.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -117,13 +118,16 @@ def test_fk_and_jacobian_match(kind):
     lo = np.maximum(a.joint_range[:, 0], -2.5)
     hi = np.minimum(a.joint_range[:, 1], 2.5)
     q = rng.uniform(lo, hi, (8, a.nv)).astype(np.float32)
-    xp_r, xq_r = jnp.vectorize(lambda qq: jchain.fk(a, qq),
-                               signature="(n)->(b,3),(b,4)")(jnp.asarray(q))
+    # jitted: one compile instead of one dispatch per primitive
+    xp_r, xq_r = jax.jit(jnp.vectorize(
+        lambda qq: jchain.fk(a, qq),
+        signature="(n)->(b,3),(b,4)"))(jnp.asarray(q))
     xp, xq = chain.fk(b, torch.from_numpy(q))
     np.testing.assert_allclose(xp.numpy(), np.asarray(xp_r), atol=1e-5)
     np.testing.assert_allclose(xq.numpy(), np.asarray(xq_r), atol=1e-5)
     body = a.nb - 1
-    J_r = jnp.vectorize(lambda qq: jchain.point_jacobian(a, qq, body),
-                        signature="(n)->(6,n)")(jnp.asarray(q))
+    J_r = jax.jit(jnp.vectorize(
+        lambda qq: jchain.point_jacobian(a, qq, body),
+        signature="(n)->(6,n)"))(jnp.asarray(q))
     J = chain.point_jacobian(b, torch.from_numpy(q), body)
     np.testing.assert_allclose(J.numpy(), np.asarray(J_r), atol=1e-5)
