@@ -4,20 +4,33 @@
 Run from the repo root on a machine with one NVIDIA GPU and the CUDA
 toolkit: ``python3 chip_smoke.py``. Imports nothing of JAX or d3il_tpu.
 
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone (no
+general-variant scene, no launch-geometry line: only the wrappers' own
+signatures are used) and prints the ``kernels`` line without launches. The
+same file copied into a checkout of an earlier commit times that commit's
+kernels, so runs of both checkouts in turns (old, new, new, old) in one
+call compare two designs on one card.
+
 Phases (each fatal on failure):
   1. device check; build the kernels from csrc/ (one nvcc per source, in
-     parallel) and print the build seconds and ptxas register/spill lines;
+     parallel) and print the build seconds and each kernel's ptxas
+     register/spill lines;
   2. hold each kernel (K1 ik_window, K2 arm_stage, K3 contact phase, K4
      feedforward) against its plain PyTorch version on the card, at
      main-path shapes: B = 8192 envs, a 35-substep window, the pushing
      scene, inputs from a real reset + 2 steps; K4 runs on K1's own window,
      at [7, 8192] and folded to [7, 35 * 8192], and is also held against
-     K1's tau_model; print the scaled errors against the tolerances and the
-     median kernel / plain times (CUDA events, after warm-up); then hold
-     K1-K3 again at the evaluation path's own shapes: B = 480 (not a
-     multiple of the block size), the inputs of one real substep of the
-     480-episode rollout under full dynamics and one in kinematic mode
-     (zero arm inverse mass, plain-FK frames, finite-difference velocity);
+     K1's tau_model; K3's general variant on a 66-row scene cut from the
+     same inputs; print the scaled errors against the tolerances and the
+     median kernel / plain times (CUDA events around one launch on an idle
+     device: ``ms``, which includes the host's submission of the launch;
+     and with a sleep kernel queued ahead, so that the events bracket
+     device time alone: ``device_ms``); then hold K1-K3 again at the
+     evaluation path's own shapes: B = 480 (not a multiple of the block
+     sizes), the inputs of one real substep of the 480-episode rollout
+     under full dynamics and one in kinematic mode (zero arm inverse mass,
+     plain-FK frames, finite-difference velocity), and time K2 and K3 there
+     (dynamic);
   3. drive the env path: PushingParams() at full width, reset of 8192
      seeded contexts, 10 hold steps then 10 steps pushing toward the red
      box; check the state, the resting boxes, the tcp tracking and that
@@ -33,11 +46,13 @@ Phases (each fatal on failure):
      clip, the metrics' range, the launch counts and that a bc rollout
      repeats exactly; print success rate, entropy, score, seconds and
      episode-steps/s;
-  5. print the ``kernels`` JSON line, the card line, and last
-     {"ok": true, "device": {...}}.
+  5. print the ``kernels`` JSON line (with ``design``, the PR whose design
+     each kernel is, ``device_ms``, and the B = 480 times and bounds of K2
+     and K3), the card line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,8 +80,44 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
+def ptxas_entries(text):
+    """{kernel: (registers line, stack/spill line)} from an nvcc -Xptxas -v
+    log, kernels named from their mangled names (template argument kept)."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if props == entry and entry and "spill" in line:
+            out.setdefault(entry, ["", ""])[1] = line.strip()
+        if entry and "Used" in line and "registers" in line:
+            out.setdefault(entry, ["", ""])[0] = line.split(":", 1)[-1].strip()
+            entry = None
+    named = {}
+    for mangled, v in out.items():
+        m = re.match(r"_Z(\d+)(\w+)", mangled)
+        n = int(m.group(1))
+        name, rest = m.group(2)[:n], m.group(2)[n:]
+        t = re.match(r"ILi(\d+)E", rest)
+        named[name + (f"<{t.group(1)}>" if t else "")] = tuple(v)
+    return named
+
+
+SLEEP_CYCLES = 2_000_000    # ~1 ms of device time queued ahead of a launch
+
+
+def cuda_ms(fn, reps, queued=False):
+    """Median of ``reps`` CUDA-event timings of one fn() (after a warm-up).
+    Without ``queued`` the device is idle at the first event, so the bracket
+    also holds the host's submission of fn's launches (the wrapper's checks,
+    allocations and the ctypes call). With ``queued`` a sleep kernel is
+    enqueued first, so the host has submitted them before the device reaches
+    the first event and the events bracket device time alone."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -74,6 +125,8 @@ def cuda_ms(fn, reps):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -167,18 +220,25 @@ def profile_step(params, state, hold):
     if not dev or busy_us <= 0:
         log("profile: not measured (the trace holds no device time)")
         return
-    by_name = {}
-    for e in dev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    by_name = top_device_time(dev)
     memcpy = sum(n for name, (n, _) in by_name.items()
                  if "memcpy" in name.lower())
     log(f"profile of one push step: wall {wall_us / 1e3:.1f} ms (profiler "
         f"on), device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}), "
         f"{len(dev)} device activities of which {memcpy} memcpy")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+
+
+def top_device_time(dev, k=8):
+    """Device time and count by kernel name over profiler events ``dev``;
+    prints the ``k`` largest. Returns {name: (count, us)}."""
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
     for name, (n, t) in top:
         log(f"  {t / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+    return by_name
 
 
 def leaves(tree):
@@ -297,6 +357,7 @@ def profile_eval_step(spec, agent, q_init, card):
     log(f"eval step profile at B = {n}: wall {wall_us / 1e3:.1f} ms "
         f"(profiler on), device busy {busy_us / 1e3:.1f} ms "
         f"({busy_us / wall_us:.1%}), {len(dev)} device activities [{card}]")
+    top_device_time(dev)
 
 
 def scaled_err(a, b):
@@ -328,13 +389,15 @@ def hold_kernel(k, card, failed, timed=True):
     if not timed:
         return
     k["ms"] = cuda_ms(k["run"], k["reps"][0])
+    k["device_ms"] = cuda_ms(k["run"], k["reps"][0], queued=True)
     k["plain_ms"] = cuda_ms(k["plain"], k["reps"][1])
     ops = count_ops(k["plain"])
     byt = nbytes(k["ins"]) + nbytes(k["out"])
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byt / PEAK_BYTES * 1e3
     k["bound_ms"] = max(t_ops, t_bytes)
     k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"{k['key']} {k['name']}: kernel {k['ms']:.3f} ms, plain "
+    log(f"{k['key']} {k['name']}: kernel {k['ms']:.4f} ms (device "
+        f"{k['device_ms']:.4f} ms), plain "
         f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
         f"({k['bound_by']}: {ops:.3e} flop, {byt:.3e} B) [{card}]")
 
@@ -372,6 +435,8 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
              bm(push[:, :3]), bm(push[:, 3:]))
     k1_out = dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in)
     recs = [dict(name=f"ik_window_b{n}_{mode}", key="K1", out=k1_out,
+                 ins=k1_in,
+                 run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
                  plain=lambda: dyn_kernel.ik_window_plain(st.ik, n_sub,
                                                           *k1_in),
                  f64=lambda: dyn_kernel.ik_window_plain(
@@ -390,7 +455,9 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
         k2_in = (sb.q, sb.qd, k1_out[2][0], k1_out[3][0], k1_out[4][0], sw, gf)
         arm_out = dyn_kernel.arm_stage_bm(st.arm, *k2_in)
         recs.append(dict(
-            name=f"arm_stage_b{n}_{mode}", key="K2", out=arm_out,
+            name=f"arm_stage_b{n}_{mode}", key="K2", out=arm_out, ins=k2_in,
+            run=lambda: dyn_kernel.arm_stage_bm(st.arm, *k2_in),
+            reps=(20, 3),
             plain=lambda: dyn_kernel.arm_stage_plain(
                 st.arm, *k2_in[:6], k2_in[6].to(torch.float32)),
             names=("xpos", "xquat", "axes", "anchors", "Minv", "qd_pre",
@@ -403,46 +470,47 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
         f"steps): {active:.1f} contacts with depth > 0 per env, rod-box contact "
         f"force in {rod:.1%} of envs, max |v_all| {k3_in[6].abs().max():.3f}")
     recs.append(dict(name=f"contact_phase_b{n}_{mode}", key="K3", out=k3_out,
+                     ins=k3_in, reps=(20, 3),
+                     run=lambda: contact_kernel.phase_batched_bm(st.contact,
+                                                                 *k3_in),
                      plain=lambda: contact_kernel.phase_plain(st.meta, *k3_in),
                      names=("f", "qfrc"), tols=tols["K3"]))
     return recs
 
 
-def main():
+def general_scene_kernel(st, k3_in, tols):
+    """K3's general variant, which takes scenes of more than 56 rows: a
+    66-row scene made of pushing's 18 contacts and 4 of them again, on the
+    main path's inputs cut the same way."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+    from d3il_tpu_torch.engine import contact, contact_kernel
+    idx = list(range(st.meta.ncon)) + [12, 13, 5, 6]
+    meta = contact.select_contacts(st.meta, idx)
+    tables = contact_kernel.ContactTables(meta, k3_in[0].device)
+    if tables.geometry.variant != 2:
+        raise SystemExit(f"a 66-row scene should take the general variant: "
+                         f"{tables.geometry}")
+    t = torch.as_tensor(idx, device=k3_in[0].device)
+    ins = tuple(a[t].contiguous() if i in (0, 1, 2, 10) else a
+                for i, a in enumerate(k3_in))  # pts, normal, depth, warm
+    run = lambda: contact_kernel.phase_batched_bm(tables, *ins)
+    return dict(name="contact_phase_66_rows", key="K3", report=False,
+                timed=False, out=run(), ins=ins, run=run,
+                plain=lambda: contact_kernel.phase_plain(meta, *ins),
+                names=("f", "qfrc"), tols=tols)
+
+
+def main_path_kernels(params, dev):
+    """K1-K4 on the main path's shapes and inputs: B = 8192 seeded contexts
+    reset and held for 2 steps, then K1 on the push setpoint's window, K2
+    and K3 on its first substep, K4 on K1's own window (one substep, and the
+    window folded into the batch). Returns (kernel records for hold_kernel,
+    K1's window inputs and outputs, K4's window output, the K4 window
+    helpers (ddgain, fold))."""
+    import torch
     from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
                                        substep_bm)
     from d3il_tpu_torch.envs import pushing
-    from d3il_tpu_torch.kernels import build
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = card_line()
-    log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
-
-    # ---- phase 1: build -------------------------------------------------
-    t0 = time.perf_counter()
-    took = build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
-        + json.dumps({k: round(v, 1) for k, v in took.items()}))
-    for name in build.SOURCES:
-        logf = build.lib_path(name).with_suffix(".log")
-        if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
-
-    # ---- phase 2: kernels vs plain at main-path shapes ------------------
-    t0 = time.perf_counter()
-    params = pushing.PushingParams()            # 35 substeps, 25 iterations
-    torch.cuda.synchronize()
-    log(f"params: {time.perf_counter() - t0:.1f} s (offline IK + null-space "
-        f"convergence), q_init {params.q_init.round(4).tolist()}")
     st = params.statics
     gen = torch.Generator(device=dev).manual_seed(0)
     state = pushing.reset(params, pushing.sample_context(gen, B))
@@ -484,7 +552,7 @@ def main():
     torch.cuda.synchronize()
 
     kernels = [
-        dict(name="ik_window", key="K1", route="cuda",
+        dict(name="ik_window", key="K1", route="cuda", design="PR 1",
              source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:230",
              run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
@@ -499,7 +567,7 @@ def main():
              tols=(3e-5, 3e-2, 3e-5, 3e-2, 2e-2),
              f64=lambda: dyn_kernel.ik_window_plain(
                  st.ik, n_sub, *(x.double() for x in k1_in))),
-        dict(name="arm_stage", key="K2", route="cuda",
+        dict(name="arm_stage", key="K2", route="cuda", design="PR 3",
              source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:165",
              run=lambda: dyn_kernel.arm_stage_bm(st.arm, *k2_in),
@@ -510,7 +578,7 @@ def main():
                     "a_arm"),
              # test_dyn_kernel.py:73-79
              tols=(1e-5, 1e-5, 1e-5, 1e-5, 3e-4, 1e-3, 1e-3)),
-        dict(name="contact_phase", key="K3", route="cuda",
+        dict(name="contact_phase", key="K3", route="cuda", design="PR 3",
              source="d3il_tpu_torch/csrc/contact_kernel.cu",
              replaces="d3il_tpu/engine/contact_kernel.py:345",
              run=lambda: contact_kernel.phase_batched_bm(st.contact, *k3_in),
@@ -519,14 +587,14 @@ def main():
              # test_contact_kernel.py:116-117
              tols=(2e-4, 2e-4)),
         dict(name="feedforward_b8192", key="K4", route="cuda", report=False,
-             source="d3il_tpu_torch/csrc/dyn_kernel.cu",
+             design="PR 2", source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:276",
              run=lambda: (dyn_kernel.feedforward_bm(st.ik, *k4_in),),
              plain=lambda: (dyn_kernel.feedforward_plain(st.ik, *k4_in),),
              ins=k4_in, out=k4_out, reps=(20, 3), names=("tau",),
              # test_dyn_kernel.py:169-171
              tols=(3e-4,)),
-        dict(name="feedforward", key="K4", route="cuda",
+        dict(name="feedforward", key="K4", route="cuda", design="PR 2",
              source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:276",
              run=lambda: (dyn_kernel.feedforward_bm(st.ik, *k4w_in),),
@@ -534,9 +602,58 @@ def main():
              ins=k4w_in, out=k4w_out, reps=(20, 3), names=("tau",),
              tols=(3e-4,)),
     ]
+    return kernels, k1_in, k1_out, k4w_out, (ddg, fold)
+
+
+def main(kernels_only=False):
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
+                                       substep_bm)
+    from d3il_tpu_torch.envs import pushing
+    from d3il_tpu_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    # ---- phase 1: build -------------------------------------------------
+    t0 = time.perf_counter()
+    took = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
+        + json.dumps({k: round(v, 1) for k, v in took.items()}))
+    for name in build.SOURCES:
+        logf = build.lib_path(name).with_suffix(".log")
+        if logf.exists():
+            for entry, (regs, spill) in ptxas_entries(logf.read_text()).items():
+                log(f"  ptxas {name} {entry}: {regs}; {spill}")
+
+    # ---- phase 2: kernels vs plain at main-path shapes ------------------
+    t0 = time.perf_counter()
+    params = pushing.PushingParams()            # 35 substeps, 25 iterations
+    torch.cuda.synchronize()
+    log(f"params: {time.perf_counter() - t0:.1f} s (offline IK + null-space "
+        f"convergence), q_init {params.q_init.round(4).tolist()}")
+    st = params.statics
+    if not kernels_only:
+        log(f"launch geometry: K2 at B = {B} "
+            f"{dyn_kernel.arm_stage_geometry(B)}; K3 on pushing "
+            f"{st.contact.geometry}")
+    n_sub = params.n_substeps
+    bm = lambda x: torch.movedim(x, 0, -1).contiguous()
+    kernels, k1_in, k1_out, k4w_out, (ddg, fold) = main_path_kernels(params,
+                                                                     dev)
+    if not kernels_only:
+        kernels.append(general_scene_kernel(st, kernels[2]["ins"],
+                                            kernels[2]["tols"]))
     failed = []
     for k in kernels:
-        hold_kernel(k, card, failed)
+        hold_kernel(k, card, failed, timed=k.get("timed", True))
     # K4 against K1: the same FK + RNEA pass on the same window
     K4_VS_K1_TOL = 1e-4
     e = scaled_err(k4w_out[0].reshape(7, n_sub, B).movedim(1, 0), k1_out[4])
@@ -550,12 +667,36 @@ def main():
     from d3il_tpu_torch import registry
     spec = registry.TASKS["pushing"]
     tols = {k["key"]: k["tols"] for k in kernels[:3]}
+    by_key = {k["key"]: k for k in kernels if k.get("report", True)}
     for kin in (False, True):
         for k in rollout_substep_kernels(spec, params.q_init, kin, tols):
-            hold_kernel(k, card, failed, timed=False)
+            # K2 and K3 timed at the evaluation path's batch, dynamic mode
+            timed = not kin and k["key"] in ("K2", "K3")
+            hold_kernel(k, card, failed, timed=timed)
+            if timed:
+                for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "bound_by"):
+                    by_key[k["key"]][f + "_b480"] = k[f]
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
+    keys = ("name", "route", "source", "replaces", "design", "max_abs_err",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    b480 = ("ms_b480", "device_ms_b480", "plain_ms_b480", "bound_ms_b480",
+            "bound_by_b480")
+    if kernels_only:    # the checkout under test may be another design's
+        keys = tuple(k for k in keys if k != "design")
+    line = lambda kk, **more: dict({k: kk[k] for k in keys},
+                                   **{k: kk[k] for k in b480 if k in kk},
+                                   **more, library_ms=None)
+    if kernels_only:
+        print(json.dumps({"kernels": [line(kk) for kk in kernels
+                                      if kk.get("report", True)]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- phase 3: the main path ----------------------------------------
     counters = {"K1": dyn_kernel.ik_window_bm, "K2": dyn_kernel.arm_stage_bm,
@@ -647,11 +788,12 @@ def main():
                         f"({ff_err:.3e})")
     if problems:
         raise SystemExit("main path failed: " + "; ".join(problems))
-    kernel_s = sum(k["ms"] * launches[k["key"]] for k in kernels
-                   if k.get("report", True)) / 1e3
-    log(f"main path: the kernels' timed ms x launches = {kernel_s:.3f} "
-        f"s of {t_hold + t_push:.3f} s wall "
-        f"({kernel_s / (t_hold + t_push):.1%}) [{card}]")
+    for f in ("ms", "device_ms"):
+        kernel_s = sum(k[f] * launches[k["key"]] for k in kernels
+                       if k.get("report", True)) / 1e3
+        log(f"main path: the kernels' timed {f} x launches = {kernel_s:.3f} "
+            f"s of {t_hold + t_push:.3f} s wall "
+            f"({kernel_s / (t_hold + t_push):.1%}) [{card}]")
     profile_step(params, state, hold)
 
     # ---- phase 4: the evaluation path -----------------------------------
@@ -720,19 +862,16 @@ def main():
     profile_eval_step(spec, agent, params.q_init, card)
 
     # ---- phase 5: report --------------------------------------------------
-    keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1)
     print(json.dumps({"kernels": [
-        dict({k: kk[k] for k in keys},
-             launches=launches[kk["key"]] or window_launches[kk["key"]],
+        line(kk, launches=launches[kk["key"]] or window_launches[kk["key"]],
              launches_path=launches[kk["key"]],
              launches_window_check=window_launches[kk["key"]],
              launches_eval_dynamic=eval_launches["dynamic"][kk["key"]],
-             launches_eval_kinematic=eval_launches["kinematic"][kk["key"]],
-             library_ms=None) for kk in kernels if kk.get("report", True)]}))
+             launches_eval_kinematic=eval_launches["kinematic"][kk["key"]])
+        for kk in kernels if kk.get("report", True)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -741,4 +880,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"]))

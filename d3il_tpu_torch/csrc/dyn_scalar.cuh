@@ -4,16 +4,19 @@
 // engine/dyn_scalar.py, which folds chain constants into immediates at
 // trace time). Here the chain is a small table (ChainTab) passed to the
 // kernel as a __grid_constant__ parameter, so it sits in the constant bank
-// and one set of device functions serves both the 7-dof URDF control chain
-// (ik_window) and the 9-dof, 17-body MJCF sim chain (arm_stage). Loops over
-// bodies run to the table's nb at run time; per-body arrays are sized by
-// the compile-time maxima below and live in local memory (L1-cached).
+// and one set of device functions serves the 7-dof URDF control chain
+// (ik_window, feedforward); the small helpers (quaternions, rot_inertia,
+// add_steiner) also serve arm_stage, which runs the 9-dof, 17-body MJCF sim
+// chain with one env per group of lanes (dyn_kernel.cu). Loops over bodies
+// run to the table's nb at run time; per-body arrays are sized by the
+// compile-time maxima below and live in local memory (L1-cached).
 //
-// The stage functions (FK, RNEA, CRBA, the Cholesky pieces) are
-// __noinline__: with them inlined into arm_stage, nvcc 12.8 at NVVM -O1 and
-// above returned wrong bias forces (the caller's joint arrays were
-// overwritten during the RNEA; the same code is right under -Xcicc -O0, in
-// a host build, and with these calls kept out of line).
+// The stage functions (FK, RNEA, the Cholesky pieces) are __noinline__:
+// with them inlined into the one-thread-per-env arm_stage kernel of the
+// first port, nvcc 12.8 at NVVM -O1 and above returned wrong bias forces
+// (the caller's joint arrays were overwritten during the RNEA; the same
+// code was right under -Xcicc -O0, in a host build, and with these calls
+// kept out of line). ik_window and feedforward keep them so.
 #pragma once
 
 #include <math.h>
@@ -230,71 +233,6 @@ __device__ __noinline__ void rnea_d(const ChainTab& ch, const v3* xpos, const qt
 }
 
 // ---------------------------------------------------------------------------
-// CRBA (dyn_scalar.crba_s): composite bodies about their own COM. M is the
-// full symmetric nv x nv matrix, row-major with stride D3_MAXV.
-// ---------------------------------------------------------------------------
-__device__ __noinline__ void crba_d(const ChainTab& ch, const v3* axes, const v3* anchors,
-                       const v3* coms, const m3* Iw, float* M) {
-  float msub[D3_MAXB];
-  v3 csub[D3_MAXB];
-  m3 Isub[D3_MAXB];
-  for (int b = 0; b < ch.nb; ++b) {
-    msub[b] = ch.mass[b]; csub[b] = coms[b]; Isub[b] = Iw[b];
-  }
-  // children have larger indices than parents: a descending sweep finalizes
-  // body b's composite before it is merged into its parent
-  for (int b = ch.nb - 1; b >= 0; --b) {
-    int p = ch.parent[b];
-    if (p < 0) continue;
-    float m1 = msub[p], m2 = msub[b];
-    if (m2 == 0.0f) continue;
-    if (m1 == 0.0f) {
-      msub[p] = m2; csub[p] = csub[b]; Isub[p] = Isub[b];
-      continue;
-    }
-    float m = m1 + m2;
-    v3 c = (csub[p] * m1 + csub[b] * m2) * (1.0f / m);
-    m3 Ip = Isub[p];
-    add_steiner(Ip, m1, csub[p] - c);
-    m3 Ib = Isub[b];
-    add_steiner(Ib, m2, csub[b] - c);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) Ip.a[i][j] += Ib.a[i][j];
-    msub[p] = m; csub[p] = c; Isub[p] = Ip;
-  }
-  // msub/csub/Isub of body b were final when b was visited (its subtree was
-  // complete); merging into the parent does not modify them afterwards.
-  v3 Fj[D3_MAXV], Nj[D3_MAXV], cj[D3_MAXV];
-  for (int j = 0; j < ch.nv; ++j) {
-    int b = ch.dof_body[j];
-    v3 a = axes[j];
-    if (ch.jtype[b] == D3_HINGE) {
-      Fj[j] = cross(a, csub[b] - anchors[j]) * msub[b];
-      Nj[j] = mvec(Isub[b], a);
-    } else {
-      Fj[j] = a * msub[b];
-      Nj[j] = {0, 0, 0};
-    }
-    cj[j] = csub[b];
-  }
-  for (int j = 0; j < ch.nv; ++j) {
-    int bj = ch.dof_body[j];
-    for (int i = 0; i <= j; ++i) {
-      float v = 0.0f;
-      if (ch.anc[bj][i] > 0.0f) {
-        int bi = ch.dof_body[i];
-        if (ch.jtype[bi] == D3_HINGE)
-          v = dot(axes[i], Nj[j] + cross(cj[j] - anchors[i], Fj[j]));
-        else
-          v = dot(axes[i], Fj[j]);
-      }
-      M[i * D3_MAXV + j] = v;
-      M[j * D3_MAXV + i] = v;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // small SPD algebra (dyn_scalar.chol_factor_s / chol_apply_s), stride D3_MAXV
 // ---------------------------------------------------------------------------
 __device__ __noinline__ void chol_factor_d(const float* A, int n, float reg, float* L, float* inv_diag) {
@@ -325,32 +263,6 @@ __device__ __noinline__ void chol_apply_d(const float* L, const float* inv_diag,
     float s = y[i];
     for (int k = i + 1; k < n; ++k) s -= L[k * D3_MAXV + i] * x[k];
     x[i] = s * inv_diag[i];
-  }
-}
-
-// full symmetrized inverse (dyn_scalar.spd_inverse_s), stride D3_MAXV
-__device__ __noinline__ void spd_inverse_d(const float* A, int n, float* Ainv) {
-  float L[D3_MAXV * D3_MAXV], inv_diag[D3_MAXV];
-  chol_factor_d(A, n, 0.0f, L, inv_diag);
-  float X[D3_MAXV * D3_MAXV];  // column j at X[j * D3_MAXV + i]
-  for (int j = 0; j < n; ++j) {
-    float e[D3_MAXV];
-    for (int i = 0; i < n; ++i) e[i] = (i == j) ? 1.0f : 0.0f;
-    chol_apply_d(L, inv_diag, e, n, &X[j * D3_MAXV]);
-  }
-  for (int i = 0; i < n; ++i)
-    for (int j = i; j < n; ++j) {
-      float v = 0.5f * (X[j * D3_MAXV + i] + X[i * D3_MAXV + j]);
-      Ainv[i * D3_MAXV + j] = v;
-      Ainv[j * D3_MAXV + i] = v;
-    }
-}
-
-__device__ __forceinline__ void matvec_d(const float* A, const float* x, int n, float* out) {
-  for (int i = 0; i < n; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < n; ++j) s += A[i * D3_MAXV + j] * x[j];
-    out[i] = s;
   }
 }
 

@@ -90,6 +90,18 @@ def build_meta(scene) -> ContactMeta:
         impratio=float(scene.impratio), n_iters=int(scene.solver_iters))
 
 
+def select_contacts(meta: ContactMeta, idx) -> ContactMeta:
+    """The scene made of ``meta``'s contacts ``idx`` (in that order,
+    repeats allowed): its row tables, for a kernel's inputs cut the same
+    way."""
+    idx = np.asarray(idx)
+    return meta._replace(
+        ncon=len(idx), mask_rob=meta.mask_rob[idx],
+        onehot_a=meta.onehot_a[idx], onehot_b=meta.onehot_b[idx],
+        k_row=meta.k_row[idx], b_row=meta.b_row[idx],
+        solimp=meta.solimp[idx], mu=meta.mu[idx])
+
+
 def _frames(normal):
     """Contact frames [..., ncon, 3(dirs), 3(xyz)] from normals."""
     big = normal[..., 2:3].abs() < 0.9

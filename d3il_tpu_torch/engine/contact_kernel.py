@@ -2,16 +2,23 @@
 
 Counterpart of ``d3il_tpu/engine/contact_kernel.py``. On CUDA tensors
 ``phase_batched_bm`` launches the hand-written kernel in
-``csrc/contact_kernel.cu`` (one warp per env, J and M^-1 J' in shared
-memory) or raises; on CPU tensors it runs the plain version, the batched
-``contact.build_rows`` + ``contact.phase_core``. ``phase_batched_bm.launches``
-counts kernel launches. Unlike the TPU kernel there is no 128-lane tile
-gate: any scene whose per-env working set fits one block's shared memory
-runs; a larger one raises.
+``csrc/contact_kernel.cu`` or raises; on CPU tensors it runs the plain
+version, the batched ``contact.build_rows`` + ``contact.phase_core``.
+``phase_batched_bm.launches`` counts kernel launches.
+
+The kernel has two variants, both one warp per env, picked by the scene's
+size (``geometry`` mirrors how the .cu picks and sizes them): the register
+variant (scenes with at most 56 constraint rows, pushing's 54 among them)
+forms the scaled Delassus matrix once and keeps each lane's rows of it in
+registers; the general variant keeps J and M^-1 J' in shared memory and
+takes any larger scene whose per-env working set fits one block's shared
+memory. A larger scene raises. Unlike the TPU kernel there is no 128-lane
+tile gate.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,10 +36,65 @@ class ContactDims(ctypes.Structure):
 
 
 def smem_bytes(meta) -> int:
-    """Per-env shared memory of the kernel (mirrors smem_floats in the .cu)."""
+    """Per-env shared memory of the general variant (mirrors smem_floats in
+    the .cu)."""
     n = 3 * meta.ncon
     return 4 * (2 * n * meta.nv + meta.nv_r ** 2 + 6 * meta.nv_r
                 + 12 * meta.nf + 3 * meta.nv + 9 * n + 2 * meta.ncon)
+
+
+REG_COLS = 56      # rows the register variant takes, padded (K3_REG_NC)
+REG_WARPS = 4      # envs per block of the register variant (K3_REG_WARPS)
+REG_MAX_VR = 9     # robot dofs the register variant takes (K3_MAXVR)
+
+
+def reg_smem_bytes(meta) -> int:
+    """Per-env shared memory of the register variant (mirrors
+    reg_smem_floats in the .cu)."""
+    nc = REG_COLS
+    f = (meta.nv * nc + 3 * nc + meta.nv_r ** 2 + 6 * meta.nv_r
+         + 12 * meta.nf + 2 * meta.nv + 10 * meta.ncon)
+    return 4 * ((f + 3) // 4 * 4)
+
+
+def reg_table_bytes(meta) -> int:
+    """The register variant's per-block copy of the scene tables (mirrors
+    reg_table_floats in the .cu)."""
+    f = (9 * meta.ncon + meta.ncon * meta.nv_r + meta.nv_r + 2 * meta.ncon
+         + 6 * meta.nf)
+    return 4 * ((f + 3) // 4 * 4)
+
+
+class Geometry(NamedTuple):
+    """How the kernel runs a scene: ``variant`` 1 (register) or 2
+    (general), envs (warps) per block, shared-memory bytes per env and per
+    block (the register variant adds one copy of the scene tables per
+    block), and the register variant's padded width (0 for the general)."""
+
+    variant: int
+    envs_per_block: int
+    smem_per_env: int
+    smem_per_block: int
+    cols: int
+
+
+def geometry(meta) -> Geometry:
+    """The launch geometry of ``d3il_contact_phase`` for this scene: the
+    register variant where it applies, else the general one. Raises for a
+    scene neither takes."""
+    if 3 * meta.ncon <= REG_COLS and meta.nv_r <= REG_MAX_VR:
+        per_env = reg_smem_bytes(meta)
+        per_block = reg_table_bytes(meta) + per_env * REG_WARPS
+        if per_block <= _MAX_SMEM:
+            return Geometry(1, REG_WARPS, per_env, per_block, REG_COLS)
+    per_env = smem_bytes(meta)
+    if per_env > _MAX_SMEM:
+        raise ValueError(
+            f"contact scene with ncon={meta.ncon}, nv={meta.nv} needs "
+            f"{per_env} B of shared memory per env; the kernel takes at most "
+            f"{_MAX_SMEM}")
+    w = min(max((48 * 1024) // per_env, 1), 4)
+    return Geometry(2, w, per_env, per_env * w, 0)
 
 
 def _row_const(meta) -> np.ndarray:
@@ -48,14 +110,11 @@ def _row_const(meta) -> np.ndarray:
 
 
 class ContactTables:
-    """Device copies of a scene's static row tables, built once."""
+    """Device copies of a scene's static row tables, built once, and the
+    kernel variant that runs the scene."""
 
     def __init__(self, meta: contact.ContactMeta, device):
-        if smem_bytes(meta) > _MAX_SMEM:
-            raise ValueError(
-                f"contact scene with ncon={meta.ncon}, nv={meta.nv} needs "
-                f"{smem_bytes(meta)} B of shared memory per env; the kernel "
-                f"takes at most {_MAX_SMEM}")
+        self.geometry = geometry(meta)
         _row_const(meta)  # power check
         self.meta = meta
         dev = torch.device(device)
@@ -99,7 +158,7 @@ def _lib():
     lib = build.load("contact_kernel")
     if not getattr(lib, "_d3il_ready", False):
         lib.d3il_contact_phase.argtypes = [ContactDims, ctypes.c_int,
-                                           *([_P] * 19), _P]
+                                           ctypes.c_int, *([_P] * 19), _P]
         lib.d3il_contact_phase.restype = ctypes.c_int
         lib._d3il_ready = True
     return lib
@@ -134,7 +193,8 @@ def phase_batched_bm(tables: ContactTables, pts, normal, depth, axes, anchors,
         free_pos, free_quat, warm, tables.rowc, tables.mask_rob,
         tables.is_hinge, tables.side_a, tables.side_b, tables.inv_free, f,
         qfrc)]
-    status = _lib().d3il_contact_phase(tables.dims, B, *ptrs,
+    status = _lib().d3il_contact_phase(tables.dims, tables.geometry.variant,
+                                       B, *ptrs,
                                        build.stream_of(pts.device))
     build.check(status, "contact_phase launch")
     phase_batched_bm.launches += 1

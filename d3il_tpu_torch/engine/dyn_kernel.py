@@ -14,8 +14,11 @@ parts here:
     (``csrc/dyn_kernel.cu``) or raises. ``<wrapper>.launches`` counts kernel
     launches.
 
-Layout is batch-minor ([..., B]) as in the JAX kernels: thread e reads and
-writes element ``[..., e]``, so a warp's accesses are contiguous.
+Layout is batch-minor ([..., B]) as in the JAX kernels. K1 and K4 run one
+thread per env, so thread e reads and writes element ``[..., e]`` and a
+warp's accesses are contiguous; K2 runs one env per group of lanes
+(``arm_stage_geometry``) and its blocks load and store the envs' rows
+together, consecutive threads on consecutive envs.
 """
 from __future__ import annotations
 
@@ -112,6 +115,22 @@ def pack_chain(chain) -> ChainTab:
     anc[:nb, :nv] = chain.ancestor_mask
     _fill(t.anc, anc)
     return t
+
+
+# K2's launch geometry (mirrors K2_G, K2_THREADS and K2_STRIDE in
+# csrc/dyn_kernel.cu): one env per group of ARM_LANES lanes, ARM_THREADS
+# threads per block, ARM_STRIDE floats of shared memory per env
+ARM_LANES, ARM_THREADS, ARM_STRIDE = 8, 128, 753
+
+
+def arm_stage_geometry(B: int) -> dict:
+    """How ``arm_stage_bm`` launches B envs: lanes per env, envs per block,
+    blocks, and shared-memory bytes per env and per block (the envs' state
+    plus the block's copy of the chain table)."""
+    epb = ARM_THREADS // ARM_LANES
+    return {"lanes_per_env": ARM_LANES, "envs_per_block": epb,
+            "blocks": -(-B // epb), "smem_per_env": 4 * ARM_STRIDE,
+            "smem_per_block": 4 * ARM_STRIDE * epb + ctypes.sizeof(ChainTab)}
 
 
 class ArmSpec:

@@ -5,6 +5,9 @@ the rod, so box-table and rod-box contacts are active; they go as NumPy to
 ``jax.vmap(contact.phase_single)``, to the Pallas kernel in interpret mode
 and to the port's batched ``build_rows`` + ``phase_core``.
 """
+import pathlib
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,7 @@ from d3il_tpu.robot import chain as jchain
 from d3il_tpu_torch.engine import contact, contact_kernel, dyn_kernel
 from d3il_tpu_torch.engine import step as estep
 from d3il_tpu_torch.engine import substep_bm
-from d3il_tpu_torch.envs import pushing
+from d3il_tpu_torch.envs import pushing, scenes
 from d3il_tpu_torch.robot import chain
 
 B = 4
@@ -127,3 +130,59 @@ def test_contact_tables_match_meta(setup):
     np.testing.assert_allclose(tab.rowc.numpy().reshape(meta.ncon, 9)[:, 2],
                                meta.mu, rtol=1e-6)
     assert contact_kernel.smem_bytes(meta) * 4 <= 48 * 1024
+
+
+def _cu_source(name):
+    return (pathlib.Path(contact_kernel.__file__).parents[1] / "csrc"
+            / f"{name}.cu").read_text()
+
+
+def _rows(meta, ncon):
+    """A scene of ``ncon`` contacts: pushing's rows repeated."""
+    return contact.select_contacts(meta, np.arange(ncon) % meta.ncon)
+
+
+def test_contact_kernel_geometry_mirrors_the_cu():
+    """The Python mirror of K3's launch geometry against the formulas in
+    csrc/contact_kernel.cu: the register variant's padded width, its
+    shared memory per env and per block, the general variant's shared
+    memory, and which scenes each takes; a scene too large for both
+    raises."""
+    src = _cu_source("contact_kernel")
+    macro = {k: int(v) for k, v in
+             re.findall(r"#define (K3_\w+) (\d+)\b", src)}
+    per_env = re.search(r"inline int reg_smem_floats\(const ContactDims& D\) "
+                        r"\{\s*const int nc = K3_REG_NC;\s*int f = (.*?);",
+                        src, re.S).group(1)
+    table = re.search(r"inline int reg_table_floats\(const ContactDims& D\) "
+                      r"\{\s*int f = (.*?);", src, re.S).group(1)
+    general = re.search(r"inline int smem_floats\(const ContactDims& D\) \{"
+                        r"\s*int n = 3 \* D.ncon;\s*return (.*?);",
+                        src, re.S).group(1)
+    c_eval = lambda expr, **v: eval(" ".join(expr.replace("D.", "").replace(
+        "K3_ROWC", "9").split()), {}, v)
+    assert (macro["K3_REG_NC"], macro["K3_REG_WARPS"], macro["K3_MAXVR"]) == (
+        contact_kernel.REG_COLS, contact_kernel.REG_WARPS,
+        contact_kernel.REG_MAX_VR)
+    nc, warps = macro["K3_REG_NC"], macro["K3_REG_WARPS"]
+
+    meta = contact.build_meta(scenes.build_pushing_scene())
+    for ncon, variant in ((18, 1), (4, 1), (19, 2), (21, 2), (30, 2),
+                          (60, 2)):
+        m = _rows(meta, ncon)
+        v = dict(ncon=m.ncon, nv_r=m.nv_r, nf=m.nf, nv=m.nv, n=3 * m.ncon)
+        g = contact_kernel.geometry(m)
+        assert g.variant == variant, ncon
+        if variant == 1:
+            f_env = (c_eval(per_env, nc=nc, **v) + 3) // 4 * 4
+            f_tab = (c_eval(table, **v) + 3) // 4 * 4
+            assert g.cols == nc and g.envs_per_block == warps
+            assert g.smem_per_env == 4 * f_env
+            assert g.smem_per_block == 4 * (f_tab + warps * f_env)
+        else:
+            assert g.cols == 0
+            assert g.smem_per_env == 4 * c_eval(general, **v)
+    pushing_geo = contact_kernel.ContactTables(meta, "cpu").geometry
+    assert (pushing_geo.variant, pushing_geo.cols) == (1, 56)
+    with pytest.raises(ValueError, match="shared memory"):
+        contact_kernel.ContactTables(_rows(meta, 600), "cpu")

@@ -14,7 +14,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from d3il_tpu_torch.control import gains  # noqa: E402
-from d3il_tpu_torch.engine import contact_kernel, dyn_kernel, substep_bm  # noqa: E402
+from d3il_tpu_torch.engine import (contact, contact_kernel, dyn_kernel,  # noqa: E402
+                                   substep_bm)
 from d3il_tpu_torch.envs import pushing, scenes  # noqa: E402
 from d3il_tpu_torch.robot import panda  # noqa: E402
 
@@ -35,9 +36,15 @@ def _scaled_err(a, b):
     return ((a - b).abs().max() / max(b.abs().max().item(), 1.0)).item()
 
 
+# the original batch of each test, then the ragged edges of the kernels'
+# groupings: one env, a batch that fills no whole block (K2: 16 envs per
+# block, K3: 4 per block), and the evaluation path's 480 envs
+BATCHES = (1, 33, 480)
+
+
 @pytest.mark.cuda
-def test_arm_stage_kernel_matches_plain(cuda_device):
-    B = 256
+@pytest.mark.parametrize("B", (256,) + BATCHES)
+def test_arm_stage_kernel_matches_plain(cuda_device, B):
     rng = np.random.default_rng(2)
     q = np.concatenate([Q_INIT[:, None] + 0.1 * rng.standard_normal((7, B)),
                         0.02 + 0.01 * rng.random((2, B))])
@@ -83,11 +90,11 @@ def test_ik_window_kernel_matches_plain(cuda_device):
         assert _scaled_err(a, b) <= tol
 
 
-@pytest.mark.cuda
-def test_contact_kernel_matches_plain(cuda_device):
-    B = 64
+def _dynamic_contact_inputs(B, seed=4):
+    """K3's inputs on one dynamic substep of a pushing reset on the CPU,
+    boxes spread around the rod."""
     params = pushing.PushingParams(n_substeps=2, device="cpu", q_init=Q_INIT)
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     red = np.stack([0.525 + 0.04 * rng.uniform(-1, 1, B),
                     -0.28 + 0.04 * rng.uniform(-1, 1, B)], 1)
     yaw = rng.uniform(-np.pi / 2, np.pi / 2, (B, 2))
@@ -103,24 +110,57 @@ def test_contact_kernel_matches_plain(cuda_device):
                                   torch.zeros(7, B), torch.zeros(7, B),
                                   torch.full((B,), 0.04),
                                   torch.zeros(B, dtype=torch.bool))
-    args = substep_bm.contact_inputs(st, sb, arm)
-    f_ref, q_ref = contact_kernel.phase_batched_bm(st.contact, *args)
-    tables = contact_kernel.ContactTables(st.meta, cuda_device)
+    return st.meta, substep_bm.contact_inputs(st, sb, arm)
+
+
+def _hold_contact(meta, args, device):
+    """Launch K3 on ``args`` moved to ``device`` and hold it to the plain
+    version (test_contact_kernel.py:116-117: 2e-4 scaled)."""
+    f_ref, q_ref = contact_kernel.phase_plain(meta, *args)
+    tables = contact_kernel.ContactTables(meta, device)
+    n0 = contact_kernel.phase_batched_bm.launches
     f, qfrc = contact_kernel.phase_batched_bm(
-        tables, *(a.to(cuda_device) for a in args))
+        tables, *(a.to(device) for a in args))
     torch.cuda.synchronize()
+    assert contact_kernel.phase_batched_bm.launches == n0 + 1
     assert f_ref.abs().max() > 1e-3
-    # test_contact_kernel.py:116-117
     assert _scaled_err(f, f_ref) <= 2e-4
     assert _scaled_err(qfrc, q_ref) <= 2e-4
+    return tables
 
 
 @pytest.mark.cuda
-def test_contact_kernel_matches_plain_kinematic(cuda_device):
+@pytest.mark.parametrize("B", (64,) + BATCHES)
+def test_contact_kernel_matches_plain(cuda_device, B):
+    meta, args = _dynamic_contact_inputs(B)
+    tables = _hold_contact(meta, args, cuda_device)
+    assert (tables.geometry.variant, tables.geometry.cols) == (1, 56)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, variant, cols", (
+    ((4, 14), 1, 56), ((0, 18, 12), 2, 0), ((0, 18, 12, 13, 5, 6), 2, 0)))
+def test_contact_kernel_scene_sizes(cuda_device, rows, variant, cols):
+    """K3 on scenes made of a range of pushing's contacts (and some
+    repeated): the register variant with 26 padding rows (30 rows), and the
+    general variant just past the register variant (57 rows) and at 66."""
+    B = 33
+    meta, args = _dynamic_contact_inputs(B)
+    idx = np.r_[np.arange(rows[0], rows[1]), np.array(rows[2:], int)]
+    meta = contact.select_contacts(meta, idx)
+    t = torch.as_tensor(idx)
+    args = tuple(a[t].contiguous() if i in (0, 1, 2, 10) else a
+                 for i, a in enumerate(args))  # pts, normal, depth, warm
+    tables = _hold_contact(meta, args, cuda_device)
+    assert (tables.geometry.variant, tables.geometry.cols) == (variant, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (77,) + BATCHES)
+def test_contact_kernel_matches_plain_kinematic(cuda_device, B):
     """K3 on the kinematic mode's inputs (zero arm inverse mass and smooth
-    acceleration, plain-FK frames, finite-difference arm velocity) at a
-    batch that fills no whole block, the rod beamed into the red box."""
-    B = 77
+    acceleration, plain-FK frames, finite-difference arm velocity), the rod
+    beamed into the red box."""
     params = pushing.PushingParams(n_substeps=2, device="cpu", q_init=Q_INIT,
                                    kinematic=True)
     gen = torch.Generator().manual_seed(6)
@@ -139,14 +179,7 @@ def test_contact_kernel_matches_plain_kinematic(cuda_device):
     arm = substep_bm.beam_arm_out(st, sb.q)
     assert arm[4].shape == (9, 9, B) and not arm[4].any()
     args = substep_bm.contact_inputs(st, sb, arm)
-    f_ref, q_ref = contact_kernel.phase_batched_bm(st.contact, *args)
-    tables = contact_kernel.ContactTables(st.meta, cuda_device)
-    f, qfrc = contact_kernel.phase_batched_bm(
-        tables, *(a.to(cuda_device) for a in args))
-    torch.cuda.synchronize()
-    assert f_ref.abs().max() > 1e-3
-    assert _scaled_err(f, f_ref) <= 2e-4
-    assert _scaled_err(qfrc, q_ref) <= 2e-4
+    _hold_contact(st.meta, args, cuda_device)
 
 
 @pytest.mark.cuda

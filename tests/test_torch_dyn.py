@@ -8,6 +8,10 @@ tests/test_dyn_kernel.py. Inputs are NumPy draws from a seed, handed to both
 sides. The CUDA kernels themselves are held against these plain versions by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
+import ctypes
+import pathlib
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -181,3 +185,41 @@ def test_chain_tables_pack_the_chains():
                                scene.robot.joint_damping, rtol=1e-6)
     np.testing.assert_allclose(np.array(arm.pg), gains.JointPDGains().pgain)
     np.testing.assert_allclose(np.array(arm.grav), scene.gravity, rtol=1e-6)
+
+
+def test_arm_stage_geometry_mirrors_the_cu():
+    """The Python mirror of K2's launch geometry against csrc/dyn_kernel.cu:
+    lanes per env, threads, the per-env shared-memory stride, and the
+    layout under it: regions back to back, each as large as the chain's
+    bodies and dofs need, the regions reused for later stages large enough,
+    the stride odd (the envs of a warp on distinct banks)."""
+    src = (pathlib.Path(dyn_kernel.__file__).parents[1] / "csrc"
+           / "dyn_kernel.cu").read_text()
+    macro = {k: int(v) for k, v in
+             re.findall(r"#define (K2_\w+) (\d+)\b", src)}
+    assert (macro["K2_G"], macro["K2_THREADS"], macro["K2_STRIDE"]) == (
+        dyn_kernel.ARM_LANES, dyn_kernel.ARM_THREADS, dyn_kernel.ARM_STRIDE)
+    nb, nv = dyn_kernel.MAXB, macro["K2_NV"]
+    sizes = [("Q", nv), ("QD", nv), ("QDES", 7), ("QDDES", 7), ("TAUM", 7),
+             ("SW", 1), ("GF", 1), ("LQ", 4 * nb), ("LP", 3 * nb),
+             ("XQ", 4 * nb), ("XP", 3 * nb), ("AX", 3 * nv), ("AN", 3 * nv),
+             ("OM", 3 * nb), ("AL", 3 * nb), ("AO", 3 * nb), ("COM", 3 * nb),
+             ("IW", 9 * nb), ("MSUB", nb), ("BIAS", nv), ("FARM", nv),
+             ("AARM", nv), ("QDPRE", nv), ("RHS", nv)]
+    at = 0
+    for name, size in sizes:
+        assert macro[f"K2_{name}"] == at, name
+        at += size
+    stride = macro["K2_STRIDE"]
+    assert at <= stride and stride % 2 == 1
+    # reuse: LQ+LP holds Fj, Nj, cj, then L and 1/diag; OM..AO holds M;
+    # COM+IW holds X and Minv
+    assert 7 * nb >= max(9 * nv, nv * nv + nv)
+    assert 9 * nb >= nv * nv and 12 * nb >= 2 * nv * nv
+    g = dyn_kernel.arm_stage_geometry(481)
+    epb = macro["K2_THREADS"] // macro["K2_G"]
+    assert g["envs_per_block"] == epb and g["blocks"] == -(-481 // epb)
+    assert g["smem_per_env"] == 4 * stride
+    assert g["smem_per_block"] == (4 * stride * epb
+                                   + ctypes.sizeof(dyn_kernel.ChainTab))
+    assert g["smem_per_block"] <= 232448
