@@ -29,8 +29,11 @@ Phases (each fatal on failure):
      evaluation path's own shapes: B = 480 (not a multiple of the block
      sizes), the inputs of one real substep of the 480-episode rollout
      under full dynamics and one in kinematic mode (zero arm inverse mass,
-     plain-FK frames, finite-difference velocity), and time K2 and K3 there
-     (dynamic);
+     plain-FK frames, finite-difference velocity), and time K1-K3 there
+     (dynamic); time K1's set-up launch (B = 1, the 4000-update window that
+     PushingParams() runs); outside --kernels-only, time K1 at each lane
+     count it is built for on the B = 8192, the B = 480 and the set-up
+     inputs;
   3. drive the env path: PushingParams() at full width, reset of 8192
      seeded contexts, 10 hold steps then 10 steps pushing toward the red
      box; check the state, the resting boxes, the tcp tracking and that
@@ -47,8 +50,8 @@ Phases (each fatal on failure):
      repeats exactly; print success rate, entropy, score, seconds and
      episode-steps/s;
   5. print the ``kernels`` JSON line (with ``design``, the PR whose design
-     each kernel is, ``device_ms``, and the B = 480 times and bounds of K2
-     and K3), the card line, and last {"ok": true, "device": {...}}.
+     each kernel is, ``device_ms``, and the B = 480 times and bounds of
+     K1-K3), the card line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -180,6 +183,53 @@ def count_ops(fn, *args):
     with Counter():
         fn(*args)
     return Counter.ops
+
+
+def ik_window_ops(spec, n_sub, ins):
+    """Operations K1's function needs on these inputs (q_virt, old_vel,
+    des_pos, des_quat): the plain version's count less what it forms twice
+    or never reads. Each substep after the first composes fk(q_virt) and
+    its dof frames again, which its predecessor's RNEA formed at the same
+    q; each convergence gate repeats the first IK iteration's pose error;
+    each later IK iteration's FK composes the bodies off the path to the
+    grasp target (the fingers), which nothing reads before the next FK."""
+    from d3il_tpu_torch.engine import dyn_kernel
+    from d3il_tpu_torch.engine import dyn_scalar as dsc
+    chain = spec.ctrl_chain
+    ee = chain.body_index("panda_grasptarget")
+    q = [ins[0][i] for i in range(chain.nv)]
+    dp = tuple(ins[2][k] for k in range(3))
+    dq = dsc.qnormalize(tuple(ins[3][k] for k in range(4)))
+    xpos, xquat = dsc.fk_s(chain, q)
+    path, b = set(), ee
+    while b >= 0:
+        path.add(b)
+        b = int(chain.parent[b])
+    off_path = [b for b in range(chain.nb) if b not in path]
+    assert all(int(chain.joint_type[b]) not in (dsc.HINGE, dsc.SLIDE)
+               for b in off_path)
+
+    def gate():         # cart_step_s's gate, as far as iteration 0 forms it
+        cq = xquat[ee]
+        d_minus = sum((cq[k] - dq[k]) ** 2 for k in range(4))
+        d_plus = sum((cq[k] + dq[k]) ** 2 for k in range(4))
+        flip = dsc._where(d_minus > d_plus, -1.0, 1.0)
+        dsc.vsub(dp, xpos[ee])
+        dsc.quat_error_s(cq, tuple(dq[k] * flip for k in range(4)))
+
+    def off_path_composes():        # fk_s on a welded body
+        for b in off_path:
+            p = int(chain.parent[b])
+            dsc.qmul(xquat[p], tuple(float(v) for v in chain.body_quat[b]))
+            dsc.vadd(xpos[p], dsc.qrot(
+                xquat[p], tuple(float(v) for v in chain.body_pos[b])))
+
+    plain = count_ops(lambda: dyn_kernel.ik_window_plain(spec, n_sub, *ins))
+    twice = (count_ops(lambda: dsc.fk_s(chain, q))
+             + count_ops(lambda: dsc.dof_frames_s(chain, xpos, xquat)))
+    later_iters = int(spec.gains.num_iter) - 1
+    return (plain - (n_sub - 1) * twice - n_sub * count_ops(gate)
+            - n_sub * later_iters * count_ops(off_path_composes))
 
 
 def nbytes(tensors):
@@ -391,15 +441,19 @@ def hold_kernel(k, card, failed, timed=True):
     k["ms"] = cuda_ms(k["run"], k["reps"][0])
     k["device_ms"] = cuda_ms(k["run"], k["reps"][0], queued=True)
     k["plain_ms"] = cuda_ms(k["plain"], k["reps"][1])
-    ops = count_ops(k["plain"])
+    # the operations the function needs: the plain version's, unless it
+    # forms some twice (k["ops"])
+    ops = k["ops"]() if "ops" in k else count_ops(k["plain"])
     byt = nbytes(k["ins"]) + nbytes(k["out"])
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byt / PEAK_BYTES * 1e3
     k["bound_ms"] = max(t_ops, t_bytes)
     k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    more = (f"; the plain version does {count_ops(k['plain']):.3e}"
+            if "ops" in k else "")
     log(f"{k['key']} {k['name']}: kernel {k['ms']:.4f} ms (device "
         f"{k['device_ms']:.4f} ms), plain "
         f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
-        f"({k['bound_by']}: {ops:.3e} flop, {byt:.3e} B) [{card}]")
+        f"({k['bound_by']}: {ops:.3e} flop{more}, {byt:.3e} B) [{card}]")
 
 
 def rollout_substep_kernels(spec, q_init, kinematic, tols):
@@ -435,10 +489,11 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
              bm(push[:, :3]), bm(push[:, 3:]))
     k1_out = dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in)
     recs = [dict(name=f"ik_window_b{n}_{mode}", key="K1", out=k1_out,
-                 ins=k1_in,
+                 ins=k1_in, reps=(5, 1),
                  run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
                  plain=lambda: dyn_kernel.ik_window_plain(st.ik, n_sub,
                                                           *k1_in),
+                 ops=lambda: ik_window_ops(st.ik, n_sub, k1_in),
                  f64=lambda: dyn_kernel.ik_window_plain(
                      st.ik, n_sub, *(x.double() for x in k1_in)),
                  names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
@@ -500,6 +555,38 @@ def general_scene_kernel(st, k3_in, tols):
                 names=("f", "qfrc"), tols=tols)
 
 
+def setup_launch(params, card):
+    """K1's set-up launch, as PushingParams() makes it: the window of
+    RodTaskParams._null_converge (one env, NULL_CONVERGE_ITERS controller
+    updates from the offline IK posture) on the inputs that method builds.
+    Timed like the kernels (``ms`` bare, ``device_ms`` queued, median of
+    3)."""
+    from d3il_tpu_torch.engine import dyn_kernel
+    from d3il_tpu_torch.envs import common
+    ins = params.null_converge_window(params.start_ik(), params.init_ee_pos,
+                                      params.init_ee_quat)
+    n_sub = common.NULL_CONVERGE_ITERS
+    run = lambda: dyn_kernel.ik_window_bm(params.statics.ik, n_sub, *ins)
+    ms, dev_ms = cuda_ms(run, 3), cuda_ms(run, 3, queued=True)
+    log(f"K1 set-up launch (B = 1, n_sub = {n_sub}): kernel {ms:.3f} "
+        f"ms (device {dev_ms:.3f} ms) [{card}]")
+    return ins, n_sub
+
+
+def lane_sweep(spec, n_sub, ins, card):
+    """K1's device time at each lane count it is built for, on ``ins``
+    (the wrapper picks one by batch: engine/dyn_kernel.ik_window_geometry)."""
+    from d3il_tpu_torch.engine import dyn_kernel
+    B = ins[0].shape[-1]
+    times = {g: cuda_ms(lambda: dyn_kernel.launch_ik_window(spec, n_sub, ins,
+                                                            g), 5, queued=True)
+             for g in dyn_kernel.IK_LANES}
+    log(f"K1 lanes per env at B = {B}, n_sub = {n_sub} (device ms): "
+        + ", ".join(f"{g}: {t:.4f}" for g, t in times.items())
+        + f"; the wrapper takes "
+        f"{dyn_kernel.ik_window_geometry(B)['lanes_per_env']} [{card}]")
+
+
 def main_path_kernels(params, dev):
     """K1-K4 on the main path's shapes and inputs: B = 8192 seeded contexts
     reset and held for 2 steps, then K1 on the push setpoint's window, K2
@@ -552,11 +639,12 @@ def main_path_kernels(params, dev):
     torch.cuda.synchronize()
 
     kernels = [
-        dict(name="ik_window", key="K1", route="cuda", design="PR 1",
+        dict(name="ik_window", key="K1", route="cuda", design="PR 4",
              source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:230",
              run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
              plain=lambda: dyn_kernel.ik_window_plain(st.ik, n_sub, *k1_in),
+             ops=lambda: ik_window_ops(st.ik, n_sub, k1_in),
              ins=k1_in, out=k1_out, reps=(5, 1),
              names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
              # test_dyn_kernel.py:148-156, but tau_model 2e-2 instead of
@@ -587,14 +675,14 @@ def main_path_kernels(params, dev):
              # test_contact_kernel.py:116-117
              tols=(2e-4, 2e-4)),
         dict(name="feedforward_b8192", key="K4", route="cuda", report=False,
-             design="PR 2", source="d3il_tpu_torch/csrc/dyn_kernel.cu",
+             design="PR 4", source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:276",
              run=lambda: (dyn_kernel.feedforward_bm(st.ik, *k4_in),),
              plain=lambda: (dyn_kernel.feedforward_plain(st.ik, *k4_in),),
              ins=k4_in, out=k4_out, reps=(20, 3), names=("tau",),
              # test_dyn_kernel.py:169-171
              tols=(3e-4,)),
-        dict(name="feedforward", key="K4", route="cuda", design="PR 2",
+        dict(name="feedforward", key="K4", route="cuda", design="PR 4",
              source="d3il_tpu_torch/csrc/dyn_kernel.cu",
              replaces="d3il_tpu/engine/dyn_kernel.py:276",
              run=lambda: (dyn_kernel.feedforward_bm(st.ik, *k4w_in),),
@@ -670,8 +758,10 @@ def main(kernels_only=False):
     by_key = {k["key"]: k for k in kernels if k.get("report", True)}
     for kin in (False, True):
         for k in rollout_substep_kernels(spec, params.q_init, kin, tols):
-            # K2 and K3 timed at the evaluation path's batch, dynamic mode
-            timed = not kin and k["key"] in ("K2", "K3")
+            # K1-K3 timed at the evaluation path's batch, dynamic mode
+            timed = not kin
+            if timed and k["key"] == "K1":
+                k1_b480 = k
             hold_kernel(k, card, failed, timed=timed)
             if timed:
                 for f in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -680,6 +770,13 @@ def main(kernels_only=False):
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
+    setup = setup_launch(params, card)
+    if not kernels_only:
+        log(f"launch geometry: K1 at B = {B} "
+            f"{dyn_kernel.ik_window_geometry(B)}, at B = 480 "
+            f"{dyn_kernel.ik_window_geometry(480)}")
+        for ins, steps in ((k1_in, n_sub), (k1_b480["ins"], n_sub), setup):
+            lane_sweep(st.ik, steps, ins, card)
     keys = ("name", "route", "source", "replaces", "design", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     b480 = ("ms_b480", "device_ms_b480", "plain_ms_b480", "bound_ms_b480",

@@ -1,22 +1,30 @@
-// Scalar robot dynamics as CUDA device functions (one env per thread).
+// Scalar robot dynamics as CUDA device functions.
 //
 // Counterpart of engine/dyn_scalar.py (and of the JAX package's
 // engine/dyn_scalar.py, which folds chain constants into immediates at
-// trace time). Here the chain is a small table (ChainTab) passed to the
-// kernel as a __grid_constant__ parameter, so it sits in the constant bank
-// and one set of device functions serves the 7-dof URDF control chain
-// (ik_window, feedforward); the small helpers (quaternions, rot_inertia,
-// add_steiner) also serve arm_stage, which runs the 9-dof, 17-body MJCF sim
-// chain with one env per group of lanes (dyn_kernel.cu). Loops over bodies
-// run to the table's nb at run time; per-body arrays are sized by the
-// compile-time maxima below and live in local memory (L1-cached).
+// trace time). A chain's constants are a small table (ChainTab), passed to a
+// kernel as a __grid_constant__ parameter (the constant bank) and copied to
+// shared memory by kernels whose lanes read different bodies at once.
 //
-// The stage functions (FK, RNEA, the Cholesky pieces) are __noinline__:
-// with them inlined into the one-thread-per-env arm_stage kernel of the
-// first port, nvcc 12.8 at NVVM -O1 and above returned wrong bias forces
-// (the caller's joint arrays were overwritten during the RNEA; the same
-// code was right under -Xcicc -O0, in a host build, and with these calls
-// kept out of line). ik_window and feedforward keep them so.
+// Two kinds of code use it:
+//   * the small helpers (vectors, quaternions, rot_inertia, add_steiner),
+//     which arm_stage uses on the 9-dof, 17-body MJCF sim chain, walking
+//     the table to its run-time nb (dyn_kernel.cu);
+//   * the control chain's per-body steps (cc_*, below), for ik_window and
+//     feedforward. The 7-dof URDF control chain's structure (parents, joint
+//     types, dofs) is fixed here at compile time, so loops over its bodies
+//     unroll, parent indices are constants and per-body state stays in
+//     registers; its numbers still come from the table, and cc_matches
+//     checks a table against the structure before a launch. feedforward
+//     runs the steps in one thread (cc_feedforward); ik_window runs the same
+//     steps spread over a group of lanes, so both compute one thing in one
+//     operation order, that of engine/dyn_scalar.py.
+//
+// Everything here is inlined. The first port kept its per-thread FK, RNEA
+// and Cholesky functions __noinline__, because nvcc 12.8 returned wrong bias
+// forces with them inlined into that port's one-thread arm_stage (ROADMAP.md
+// section 3); the kernels built on this file are held against their plain
+// versions with everything inlined (tests/test_torch_cuda.py).
 #pragma once
 
 #include <math.h>
@@ -111,165 +119,158 @@ __device__ __forceinline__ void add_steiner(m3& M, float m, v3 d) {
       M.a[i][j] += m * ((i == j ? d2 : 0.0f) - dv[i] * dv[j]);
 }
 
-// ---------------------------------------------------------------------------
-// forward kinematics (dyn_scalar.fk_s): sequential parent -> child compose
-// ---------------------------------------------------------------------------
-__device__ __noinline__ void fk_d(const ChainTab& ch, const float* q, v3* xpos, qt* xquat) {
-  for (int b = 0; b < ch.nb; ++b) {
-    qt bq = mk4(ch.bquat[b]);
-    qt lq;
-    v3 lp;
-    int jt = ch.jtype[b];
-    if (jt == D3_HINGE) {
-      float s, c;
-      sincosf(q[ch.body_dof[b]] * 0.5f, &s, &c);
-      v3 ax = mk3(ch.axis[b]);
-      qt jq = {c, ax.x * s, ax.y * s, ax.z * s};
-      lq = qmul(bq, jq);
-      lp = mk3(ch.lconst[b]) - qrot(lq, mk3(ch.jpos[b]));
-    } else if (jt == D3_SLIDE) {
-      lq = bq;
-      lp = mk3(ch.lconst[b]) + mk3(ch.sdir[b]) * q[ch.body_dof[b]];
-    } else {
-      lq = bq;
-      lp = mk3(ch.lconst[b]);
-    }
-    int p = ch.parent[b];
-    if (p < 0) {
-      xquat[b] = lq;
-      xpos[b] = lp;
-    } else {
-      xquat[b] = qmul(xquat[p], lq);
-      xpos[b] = xpos[p] + qrot(xquat[p], lp);
-    }
-  }
-}
-
-// world axis + anchor of every dof (dyn_scalar.dof_frames_s)
-__device__ __noinline__ void dof_frames_d(const ChainTab& ch, const v3* xpos, const qt* xquat,
-                             v3* axes, v3* anchors) {
-  for (int d = 0; d < ch.nv; ++d) {
-    int b = ch.dof_body[d];
-    axes[d] = qrot(xquat[b], mk3(ch.axis[b]));
-    anchors[d] = xpos[b] + qrot(xquat[b], mk3(ch.jpos[b]));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// RNEA (dyn_scalar._body_kinematics + _rnea_backward). qdd may be null
-// (zero). Forward pass: world-frame angular velocity/acceleration and the
-// linear acceleration of each body origin, root acceleration -g. Backward
-// pass: forces and moments about each body's own origin. Also returns the
-// world COMs and inertias for CRBA when coms/Iw are non-null.
-// ---------------------------------------------------------------------------
-__device__ __noinline__ void rnea_d(const ChainTab& ch, const v3* xpos, const qt* xquat,
-                       const v3* axes, const v3* anchors, const float* qd,
-                       const float* qdd, v3 grav, float* tau, v3* coms_out,
-                       m3* Iw_out) {
-  v3 omega[D3_MAXB], alpha[D3_MAXB], a_o[D3_MAXB];
-  v3 F[D3_MAXB], N[D3_MAXB];
-  for (int b = 0; b < ch.nb; ++b) {
-    int p = ch.parent[b];
-    v3 w_p = {0, 0, 0}, al_p = {0, 0, 0}, ao_p = {-grav.x, -grav.y, -grav.z}, o_p = {0, 0, 0};
-    if (p >= 0) {
-      w_p = omega[p]; al_p = alpha[p]; ao_p = a_o[p]; o_p = xpos[p];
-    }
-    v3 o_b = xpos[b];
-    v3 w_b, al_b, ao_b;
-    int jt = ch.jtype[b];
-    if (jt == D3_HINGE) {
-      int d = ch.body_dof[b];
-      v3 axis = qrot(xquat[b], mk3(ch.axis[b]));
-      v3 r = o_b + qrot(xquat[b], mk3(ch.jpos[b]));
-      w_b = w_p + axis * qd[d];
-      al_b = al_p + cross(w_p, axis) * qd[d];
-      if (qdd) al_b = al_b + axis * qdd[d];
-      v3 dr = r - o_p;
-      v3 a_r = ao_p + (cross(al_p, dr) + cross(w_p, cross(w_p, dr)));
-      v3 dob = o_b - r;
-      ao_b = a_r + (cross(al_b, dob) + cross(w_b, cross(w_b, dob)));
-    } else if (jt == D3_SLIDE) {
-      int d = ch.body_dof[b];
-      v3 axis = qrot(xquat[b], mk3(ch.axis[b]));
-      w_b = w_p;
-      al_b = al_p;
-      v3 dob = o_b - o_p;
-      ao_b = ao_p + (cross(al_p, dob) + cross(w_p, cross(w_p, dob) + axis * (2.0f * qd[d])));
-      if (qdd) ao_b = ao_b + axis * qdd[d];
-    } else {
-      w_b = w_p;
-      al_b = al_p;
-      v3 dob = o_b - o_p;
-      ao_b = ao_p + (cross(al_p, dob) + cross(w_p, cross(w_p, dob)));
-    }
-    omega[b] = w_b;
-    alpha[b] = al_b;
-    a_o[b] = ao_b;
-    v3 com = o_b + qrot(xquat[b], mk3(ch.com[b]));
-    m3 Iw = rot_inertia(qtomat(xquat[b]), ch.inertia[b]);
-    if (coms_out) { coms_out[b] = com; Iw_out[b] = Iw; }
-    // backward-pass seeds
-    v3 dc = com - o_b;
-    v3 a_c = ao_b + (cross(al_b, dc) + cross(w_b, cross(w_b, dc)));
-    v3 f = a_c * ch.mass[b];
-    v3 n = mvec(Iw, al_b) + cross(w_b, mvec(Iw, w_b));
-    F[b] = f;
-    N[b] = n + cross(dc, f);
-  }
-  for (int b = ch.nb - 1; b > 0; --b) {
-    int p = ch.parent[b];
-    F[p] = F[p] + F[b];
-    N[p] = N[p] + (N[b] + cross(xpos[b] - xpos[p], F[b]));
-  }
-  for (int d = 0; d < ch.nv; ++d) {
-    int b = ch.dof_body[d];
-    if (ch.jtype[b] == D3_HINGE) {
-      v3 n_r = N[b] + cross(xpos[b] - anchors[d], F[b]);
-      tau[d] = dot(axes[d], n_r);
-    } else {
-      tau[d] = dot(axes[d], F[b]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// small SPD algebra (dyn_scalar.chol_factor_s / chol_apply_s), stride D3_MAXV
-// ---------------------------------------------------------------------------
-__device__ __noinline__ void chol_factor_d(const float* A, int n, float reg, float* L, float* inv_diag) {
-  for (int i = 0; i < n; ++i) {
-    for (int j = 0; j <= i; ++j) {
-      float s = A[j * D3_MAXV + i] + (i == j ? reg : 0.0f);
-      for (int k = 0; k < j; ++k) s -= L[i * D3_MAXV + k] * L[j * D3_MAXV + k];
-      if (i == j) {
-        float l = sqrtf(fmaxf(s, 1e-12f));
-        L[i * D3_MAXV + i] = l;
-        inv_diag[i] = 1.0f / l;
-      } else {
-        L[i * D3_MAXV + j] = s * inv_diag[j];
-      }
-    }
-  }
-}
-
-__device__ __noinline__ void chol_apply_d(const float* L, const float* inv_diag, const float* b,
-                             int n, float* x) {
-  float y[D3_MAXV];
-  for (int i = 0; i < n; ++i) {
-    float s = b[i];
-    for (int k = 0; k < i; ++k) s -= L[i * D3_MAXV + k] * y[k];
-    y[i] = s * inv_diag[i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < n; ++k) s -= L[k * D3_MAXV + i] * x[k];
-    x[i] = s * inv_diag[i];
-  }
-}
-
 __device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
 // ops/quat.quat_error: wc*vd - wd*vc - vd x vc
 __device__ __forceinline__ v3 quat_error_d(qt c, qt d) {
   v3 vc = {c.x, c.y, c.z}, vd = {d.x, d.y, d.z};
   return (vd * c.w - vc * d.w) - cross(vd, vc);
+}
+
+// ---------------------------------------------------------------------------
+// The control chain (robot/panda.build_control_chain): panda_link0 (fixed
+// root), panda_link1..7 on the hinges of dofs 0..6, then panda_link8 and
+// panda_hand fixed in a row after link7, and both fingers and
+// panda_grasptarget fixed to the hand.
+// ---------------------------------------------------------------------------
+#define CC_NB 13
+#define CC_NV 7
+#define CC_EE 12   // panda_grasptarget, the IK target frame
+
+// parent of body b; body b is a hinge for 1 <= b <= CC_NV, on dof b - 1
+__host__ __device__ constexpr int cc_parent(int b) { return b == 0 ? -1 : (b <= 9 ? b - 1 : 9); }
+
+inline bool cc_matches(const ChainTab& ch) {
+  if (ch.nb != CC_NB || ch.nv != CC_NV) return false;
+  for (int b = 0; b < CC_NB; ++b) {
+    const bool hinge = b >= 1 && b <= CC_NV;
+    if (ch.parent[b] != cc_parent(b) || ch.jtype[b] != (hinge ? D3_HINGE : D3_FIXED)) return false;
+    if (hinge && ch.body_dof[b] != b - 1) return false;
+  }
+  for (int d = 0; d < CC_NV; ++d)
+    if (ch.dof_body[d] != d + 1) return false;
+  return true;
+}
+
+// local transform of hinge body b at joint angle qb (dyn_scalar.fk_s); a
+// fixed body's is (bquat, lconst) from the table. IEEE sincosf: K1's
+// finite differences divide q by dt twice
+__device__ __forceinline__ void cc_local(const ChainTab& ch, int b, float qb, qt& lq, v3& lp) {
+  float s, c;
+  sincosf(qb * 0.5f, &s, &c);
+  const v3 ax = mk3(ch.axis[b]);
+  const qt jq = {c, ax.x * s, ax.y * s, ax.z * s};
+  lq = qmul(mk4(ch.bquat[b]), jq);
+  lp = mk3(ch.lconst[b]) - qrot(lq, mk3(ch.jpos[b]));
+}
+
+// world pose of a body from its parent's and its local transform
+__device__ __forceinline__ void cc_compose(qt pq, v3 pp, qt lq, v3 lp, qt& xq, v3& xp) {
+  xq = qmul(pq, lq);
+  xp = pp + qrot(pq, lp);
+}
+
+// world axis and anchor of the hinge of body b (dyn_scalar.dof_frames_s)
+__device__ __forceinline__ void cc_dof_frame(const ChainTab& ch, int b, qt xq, v3 xp, v3& axis,
+                                             v3& anchor) {
+  axis = qrot(xq, mk3(ch.axis[b]));
+  anchor = xp + qrot(xq, mk3(ch.jpos[b]));
+}
+
+// RNEA forward step (dyn_scalar._body_kinematics, gravity 0): angular
+// velocity, angular acceleration and the acceleration of the body origin,
+// from the parent's (origin o_p) to the body's (origin o_b)
+struct cc_motion { v3 w, al, ao; };
+
+__device__ __forceinline__ cc_motion cc_fwd_hinge(const cc_motion& p, v3 o_p, v3 o_b, v3 axis, v3 r,
+                                                  float qd, float qdd) {
+  cc_motion m;
+  m.w = p.w + axis * qd;
+  m.al = p.al + cross(p.w, axis) * qd;
+  m.al = m.al + axis * qdd;
+  const v3 dr = r - o_p;
+  const v3 a_r = p.ao + (cross(p.al, dr) + cross(p.w, cross(p.w, dr)));
+  const v3 dob = o_b - r;
+  m.ao = a_r + (cross(m.al, dob) + cross(m.w, cross(m.w, dob)));
+  return m;
+}
+
+__device__ __forceinline__ cc_motion cc_fwd_fixed(const cc_motion& p, v3 o_p, v3 o_b) {
+  cc_motion m;
+  m.w = p.w;
+  m.al = p.al;
+  const v3 dob = o_b - o_p;
+  m.ao = p.ao + (cross(p.al, dob) + cross(p.w, cross(p.w, dob)));
+  return m;
+}
+
+// RNEA backward-pass seed of body b (dyn_scalar._rnea_backward): force F
+// and moment N about the body origin
+__device__ __forceinline__ void cc_seed(const ChainTab& ch, int b, qt xq, v3 o_b,
+                                        const cc_motion& m, v3& F, v3& N) {
+  // world com - origin, formed as rnea_s forms it
+  const v3 dc = (o_b + qrot(xq, mk3(ch.com[b]))) - o_b;
+  const m3 Iw = rot_inertia(qtomat(xq), ch.inertia[b]);
+  const v3 a_c = m.ao + (cross(m.al, dc) + cross(m.w, cross(m.w, dc)));
+  const v3 f = a_c * ch.mass[b];
+  const v3 n = mvec(Iw, m.al) + cross(m.w, mvec(Iw, m.w));
+  F = f;
+  N = n + cross(dc, f);
+}
+
+// RNEA backward step: body b's force and moment into its parent's
+__device__ __forceinline__ void cc_accum(v3& Fp, v3& Np, v3 Fb, v3 Nb, v3 xb, v3 xp) {
+  Fp = Fp + Fb;
+  Np = Np + (Nb + cross(xb - xp, Fb));
+}
+
+// joint torque of a hinge from its body's accumulated force and moment
+__device__ __forceinline__ float cc_tau(v3 axis, v3 anchor, v3 xb, v3 Fb, v3 Nb) {
+  return dot(axis, Nb + cross(xb - anchor, Fb));
+}
+
+// tau = M(q) qdd + C(q, qd) qd on the control chain (dyn_scalar.fk_s +
+// rnea_s with gravity 0) in one thread, every per-body quantity in
+// registers. Body 0 (the fixed root) stays at rest and carries no dof, so
+// its seed and the step into it are not formed
+__device__ __forceinline__ void cc_feedforward(const ChainTab& ch, const float* q, const float* qd,
+                                               const float* qdd, float* tau) {
+  qt xq[CC_NB];
+  v3 xp[CC_NB];
+  xq[0] = mk4(ch.bquat[0]);
+  xp[0] = mk3(ch.lconst[0]);
+#pragma unroll
+  for (int b = 1; b < CC_NB; ++b) {
+    qt lq;
+    v3 lp;
+    if (b <= CC_NV) {
+      cc_local(ch, b, q[b - 1], lq, lp);
+    } else {
+      lq = mk4(ch.bquat[b]);
+      lp = mk3(ch.lconst[b]);
+    }
+    cc_compose(xq[cc_parent(b)], xp[cc_parent(b)], lq, lp, xq[b], xp[b]);
+  }
+  v3 ax[CC_NV], an[CC_NV];
+#pragma unroll
+  for (int d = 0; d < CC_NV; ++d) cc_dof_frame(ch, d + 1, xq[d + 1], xp[d + 1], ax[d], an[d]);
+  cc_motion m[CC_NB];
+  v3 F[CC_NB], N[CC_NB];
+  m[0].w = m[0].al = m[0].ao = v3{0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int b = 1; b < CC_NB; ++b) {
+    const int p = cc_parent(b);
+    if (b <= CC_NV)
+      m[b] = cc_fwd_hinge(m[p], xp[p], xp[b], ax[b - 1], an[b - 1], qd[b - 1], qdd[b - 1]);
+    else
+      m[b] = cc_fwd_fixed(m[p], xp[p], xp[b]);
+    cc_seed(ch, b, xq[b], xp[b], m[b], F[b], N[b]);
+  }
+#pragma unroll
+  for (int b = CC_NB - 1; b > 1; --b) {
+    const int p = cc_parent(b);
+    cc_accum(F[p], N[p], F[b], N[b], xp[b], xp[p]);
+  }
+#pragma unroll
+  for (int d = 0; d < CC_NV; ++d) tau[d] = cc_tau(ax[d], an[d], xp[d + 1], F[d + 1], N[d + 1]);
 }

@@ -14,11 +14,11 @@ parts here:
     (``csrc/dyn_kernel.cu``) or raises. ``<wrapper>.launches`` counts kernel
     launches.
 
-Layout is batch-minor ([..., B]) as in the JAX kernels. K1 and K4 run one
-thread per env, so thread e reads and writes element ``[..., e]`` and a
-warp's accesses are contiguous; K2 runs one env per group of lanes
-(``arm_stage_geometry``) and its blocks load and store the envs' rows
-together, consecutive threads on consecutive envs.
+Layout is batch-minor ([..., B]) as in the JAX kernels. K4 runs one thread
+per column, so thread e reads and writes element ``[..., e]`` and a warp's
+accesses are contiguous; K1 and K2 run one env per group of lanes
+(``ik_window_geometry``, ``arm_stage_geometry``) and their blocks load the
+envs' rows together, consecutive threads on consecutive envs.
 """
 from __future__ import annotations
 
@@ -133,6 +133,35 @@ def arm_stage_geometry(B: int) -> dict:
             "smem_per_block": 4 * ARM_STRIDE * epb + ctypes.sizeof(ChainTab)}
 
 
+# K1's launch geometry (mirrors K1_THREADS and K1_STRIDE in
+# csrc/dyn_kernel.cu, which builds the kernel for each of IK_LANES lanes per
+# env): IK_THREADS threads per block, IK_STRIDE floats of shared memory per
+# env. Each env is a chain of dependent steps: a batch that puts
+# IK_IN_FLIGHT threads in flight at 4 lanes per env (the env path's 8192)
+# gains from more envs per warp on the serial stages, a smaller one (the
+# evaluation path's 480, the set-up launch's 1) from a whole warp per env on
+# the parallel ones (chip_smoke.py times both lane counts at B = 8192, 480
+# and 1)
+IK_THREADS, IK_STRIDE, IK_LANES = 128, 335, (4, 32)
+IK_IN_FLIGHT = 16384
+
+
+def ik_window_geometry(B: int, lanes: int | None = None) -> dict:
+    """How ``ik_window_bm`` launches B envs (or, given ``lanes``, how that
+    many lanes per env would): lanes per env, envs per block, blocks, and
+    shared-memory bytes per env and per block (the envs' state plus the
+    block's copies of the chain table and the gains)."""
+    if lanes is None:
+        lanes = IK_LANES[0] if B * IK_LANES[0] >= IK_IN_FLIGHT else IK_LANES[1]
+    if lanes not in IK_LANES:
+        raise ValueError(f"ik_window runs {IK_LANES} lanes per env, not {lanes}")
+    epb = IK_THREADS // lanes
+    return {"lanes_per_env": lanes, "envs_per_block": epb,
+            "blocks": -(-B // epb), "smem_per_env": 4 * IK_STRIDE,
+            "smem_per_block": 4 * IK_STRIDE * epb + ctypes.sizeof(ChainTab)
+            + ctypes.sizeof(CartParams)}
+
+
 class ArmSpec:
     """Static inputs of the arm stage: the scene's sim chain (7 arm + 2
     finger dofs), the joint PD gains, damping, actuator ranges, dt, g."""
@@ -201,7 +230,7 @@ def _lib():
         lib.d3il_arm_stage.restype = ctypes.c_int
         lib.d3il_ik_window.argtypes = [
             ctypes.POINTER(ChainTab), ctypes.POINTER(CartParams), ctypes.c_int,
-            ctypes.c_int, *([_P] * 9), _P]
+            ctypes.c_int, ctypes.c_int, *([_P] * 9), _P]
         lib.d3il_ik_window.restype = ctypes.c_int
         lib.d3il_feedforward.argtypes = [ctypes.POINTER(ChainTab),
                                          ctypes.c_int, *([_P] * 4), _P]
@@ -337,21 +366,32 @@ def ik_window_bm(spec: IkSpec, n_sub: int, q_virt, old_vel, des_pos,
     if q_virt.device.type == "cpu":
         return ik_window_plain(spec, n_sub, q_virt, old_vel, des_pos,
                                des_quat)
+    outs = launch_ik_window(
+        spec, n_sub, (q_virt, old_vel, des_pos, des_quat),
+        ik_window_geometry(q_virt.shape[-1])["lanes_per_env"])
+    ik_window_bm.launches += 1
+    return outs
+
+
+def launch_ik_window(spec: IkSpec, n_sub: int, ins, lanes: int):
+    """One launch of K1 on CUDA inputs (q_virt, old_vel, des_pos, des_quat)
+    with ``lanes`` lanes per env; returns ``ik_window_bm``'s outputs. Not
+    counted: ``ik_window_bm`` counts its own calls, and chip_smoke.py times
+    each lane count through this."""
+    q_virt, old_vel, des_pos, des_quat = ins
     B = q_virt.shape[-1]
     build.check_inputs({"q_virt": (q_virt, (7,)), "old_vel": (old_vel, (7,)),
-                   "des_pos": (des_pos, (3,)), "des_quat": (des_quat, (4,))},
-                  B, q_virt.device)
+                        "des_pos": (des_pos, (3,)),
+                        "des_quat": (des_quat, (4,))}, B, q_virt.device)
+    ik_window_geometry(B, lanes)      # raises for a lane count not built
     new = lambda *s: torch.empty(s + (B,), dtype=torch.float32,
                                  device=q_virt.device)
     outs = (new(7), new(7), new(n_sub, 7), new(n_sub, 7), new(n_sub, 7))
-    lib = _lib()
-    status = lib.d3il_ik_window(
+    status = _lib().d3il_ik_window(
         ctypes.byref(spec.chain_tab), ctypes.byref(spec.params), B,
-        int(n_sub), *(t.data_ptr() for t in (q_virt, old_vel, des_pos,
-                                             des_quat)),
+        int(n_sub), int(lanes), *(t.data_ptr() for t in ins),
         *(o.data_ptr() for o in outs), build.stream_of(q_virt.device))
     build.check(status, "ik_window launch")
-    ik_window_bm.launches += 1
     return outs
 
 

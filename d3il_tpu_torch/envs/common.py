@@ -27,6 +27,10 @@ from d3il_tpu_torch.ops import quat as quat_ops
 from d3il_tpu_torch.robot import chain as chain_mod
 from d3il_tpu_torch.robot import panda
 
+# controller updates of the start-posture window that every params object
+# without a given q_init runs (one launch of K1 for a single env on the card)
+NULL_CONVERGE_ITERS = 4000
+
 
 class StepResult(NamedTuple):
     obs: torch.Tensor      # observation (reference semantics: pre-substep state)
@@ -75,23 +79,32 @@ class RodTaskParams:
             # episode start: offline IK from the default qpos, then
             # null-space convergence of the impedance controller's virtual
             # posture (see the JAX counterpart for why)
-            q_star = offline_ik.solve(self.ctrl_chain, self.init_ee_pos,
-                                      self.init_ee_quat, q0=panda.INIT_QPOS)
-            q_init = self._null_converge(q_star, self.init_ee_pos,
+            q_init = self._null_converge(self.start_ik(), self.init_ee_pos,
                                          self.init_ee_quat)
         self.q_init = np.asarray(q_init, np.float64)
 
-    def _null_converge(self, q0, ee_pos, ee_quat, iters: int = 4000):
-        """Iterate the cartesian controller's virtual-posture update (no
-        physics) until the null-space drive is stationary: one IK window of
-        ``iters`` updates for a single env."""
+    def start_ik(self):
+        """Offline IK of the initial ee pose from the default qpos."""
+        return offline_ik.solve(self.ctrl_chain, self.init_ee_pos,
+                                self.init_ee_quat, q0=panda.INIT_QPOS)
+
+    def null_converge_window(self, q0, ee_pos, ee_quat):
+        """The inputs of ``_null_converge``'s IK window for a single env:
+        q_virt = q0 at rest, the ee pose as setpoint, as [k, 1] columns."""
         col = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                         dtype=torch.float32,
                                         device=self.device)[:, None]
+        return (col(q0).contiguous(), torch.zeros((7, 1), device=self.device),
+                col(ee_pos).contiguous(), col(ee_quat).contiguous())
+
+    def _null_converge(self, q0, ee_pos, ee_quat,
+                       iters: int = NULL_CONVERGE_ITERS):
+        """Iterate the cartesian controller's virtual-posture update (no
+        physics) until the null-space drive is stationary: one IK window of
+        ``iters`` updates for a single env."""
         qv, _, _, _, _ = dyn_kernel.ik_window_bm(
-            self.statics.ik, iters, col(q0).contiguous(),
-            torch.zeros((7, 1), device=self.device), col(ee_pos).contiguous(),
-            col(ee_quat).contiguous())
+            self.statics.ik, iters,
+            *self.null_converge_window(q0, ee_pos, ee_quat))
         return qv[:, 0].double().cpu().numpy()
 
     def tcp_pose(self, sc: estep.SceneState):

@@ -37,8 +37,9 @@ def _scaled_err(a, b):
 
 
 # the original batch of each test, then the ragged edges of the kernels'
-# groupings: one env, a batch that fills no whole block (K2: 16 envs per
-# block, K3: 4 per block), and the evaluation path's 480 envs
+# groupings: one env, a batch that fills no whole block (K1: 32 or 4 envs
+# per block, K2: 16, K3: 4, K4: 128 columns), and the evaluation path's 480
+# envs
 BATCHES = (1, 33, 480)
 
 
@@ -68,25 +69,57 @@ def test_arm_stage_kernel_matches_plain(cuda_device, B):
         assert _scaled_err(a, b) <= tol
 
 
-@pytest.mark.cuda
-def test_ik_window_kernel_matches_plain(cuda_device):
-    B, n_sub = 256, 4
-    rng = np.random.default_rng(3)
+def _ik_inputs(B, seed=3):
+    rng = np.random.default_rng(seed)
     ins = [panda.INIT_QPOS[:, None] + 0.2 * rng.standard_normal((7, B)),
            0.05 * rng.standard_normal((7, B)),
            np.array([0.5, 0.0, 0.2])[:, None]
            + 0.05 * rng.standard_normal((3, B)),
            np.tile(np.array([0.0, 1.0, 0.0, 0.0])[:, None], (1, B))]
-    ins = [torch.from_numpy(x.astype(np.float32)) for x in ins]
-    spec = dyn_kernel.IkSpec(panda.build_control_chain(),
+    return [torch.from_numpy(x.astype(np.float32)) for x in ins]
+
+
+def _ik_spec():
+    return dyn_kernel.IkSpec(panda.build_control_chain(),
                              gains.CartPosQuatGains(), 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (256,) + BATCHES)
+def test_ik_window_kernel_matches_plain(cuda_device, B):
+    n_sub = 4
+    ins = _ik_inputs(B)
+    spec = _ik_spec()
     ref = dyn_kernel.ik_window_bm(spec, n_sub, *ins)
+    n0 = dyn_kernel.ik_window_bm.launches
     out = dyn_kernel.ik_window_bm(spec, n_sub,
                                   *(x.to(cuda_device) for x in ins))
     torch.cuda.synchronize()
+    assert dyn_kernel.ik_window_bm.launches == n0 + 1
     # test_dyn_kernel.py:148-156: q_virt/q_des 3e-5, velocities 3e-2,
     # feedforward 2e-3 scaled
     for a, b, tol in zip(out, ref, (3e-5, 3e-2, 3e-5, 3e-2, 2e-3)):
+        assert _scaled_err(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", dyn_kernel.IK_LANES)
+def test_ik_window_kernel_path_window(cuda_device, lanes):
+    """K1 over the path's 35-substep window at every lane count it is built
+    for, B = 33 (no whole block at any of them)."""
+    B, n_sub = 33, 35
+    ins = _ik_inputs(B, seed=4)
+    spec = _ik_spec()
+    ref = dyn_kernel.ik_window_bm(spec, n_sub, *ins)
+    out = dyn_kernel.launch_ik_window(
+        spec, n_sub, [x.to(cuda_device) for x in ins], lanes)
+    torch.cuda.synchronize()
+    # chip_smoke.py's K1 tolerances: test_dyn_kernel.py:148-156, but
+    # tau_model 2e-2 instead of 2e-3: that test runs 2 substeps; over 35,
+    # float32 rounding in q_des reaches qdd_des = ddg (dq/dt - old_vel)/dt
+    # times 1/dt^2 = 1e6, and the plain version alone differs from its own
+    # float64 run by ~7e-3 scaled
+    for a, b, tol in zip(out, ref, (3e-5, 3e-2, 3e-5, 3e-2, 2e-2)):
         assert _scaled_err(a, b) <= tol
 
 
@@ -183,15 +216,14 @@ def test_contact_kernel_matches_plain_kinematic(cuda_device, B):
 
 
 @pytest.mark.cuda
-def test_feedforward_kernel_matches_plain(cuda_device):
-    B = 256
+@pytest.mark.parametrize("B", (256,) + BATCHES)
+def test_feedforward_kernel_matches_plain(cuda_device, B):
     rng = np.random.default_rng(5)
     # test_dyn_kernel.py:164-166
     ins = [rng.uniform(-1.5, 1.5, (7, B)), rng.standard_normal((7, B)),
            3.0 * rng.standard_normal((7, B))]
     ins = [torch.from_numpy(x.astype(np.float32)) for x in ins]
-    spec = dyn_kernel.IkSpec(panda.build_control_chain(),
-                             gains.CartPosQuatGains(), 1e-3)
+    spec = _ik_spec()
     ref = dyn_kernel.feedforward_bm(spec, *ins)
     n0 = dyn_kernel.feedforward_bm.launches
     out = dyn_kernel.feedforward_bm(spec, *(x.to(cuda_device) for x in ins))

@@ -223,3 +223,57 @@ def test_arm_stage_geometry_mirrors_the_cu():
     assert g["smem_per_block"] == (4 * stride * epb
                                    + ctypes.sizeof(dyn_kernel.ChainTab))
     assert g["smem_per_block"] <= 232448
+
+
+def test_ik_window_geometry_mirrors_the_cu():
+    """The Python mirror of K1's launch geometry against csrc/dyn_kernel.cu:
+    threads, the per-env shared-memory stride and the layout under it
+    (regions back to back, each as large as the control chain's bodies and
+    dofs need, the RNEA tail's reuse inside the stride, the stride odd), the
+    lane counts the kernel is built for, the block's shared memory inside
+    the 48 KB a launch gets without asking; and the control chain's
+    structure, which the .cu fixes at compile time, against the chain."""
+    csrc = pathlib.Path(dyn_kernel.__file__).parents[1] / "csrc"
+    src = (csrc / "dyn_kernel.cu").read_text()
+    macro = {k: int(v) for k, v in re.findall(r"#define (K1_\w+) (\d+)\b", src)}
+    assert (macro["K1_THREADS"], macro["K1_STRIDE"]) == (
+        dyn_kernel.IK_THREADS, dyn_kernel.IK_STRIDE)
+    nb, nv = 13, 7
+    sizes = [("QV", nv), ("OV", nv), ("DP", 3), ("DQ", 4), ("DQI", 4),
+             ("Q", nv), ("TGT", 6), ("CONV", 1), ("QD", nv), ("QDD", nv),
+             ("XQ", 4 * nb), ("XP", 3 * nb), ("AX", 3 * nv), ("AN", 3 * nv),
+             ("LQ", 4 * nv), ("LP", 3 * nv), ("J", 6 * nv), ("QN", nv),
+             ("A", 36), ("RHS", 6), ("STEP", nv), ("SCALE", 1)]
+    at = 0
+    for name, size in sizes:
+        assert macro[f"K1_{name}"] == at, name
+        at += size
+    stride = macro["K1_STRIDE"]
+    assert at <= stride and stride % 2 == 1
+    # omega, alpha, a_o [13][3] from K1_LQ on
+    assert "#define K1_AO (K1_LQ + 78)" in src
+    assert macro["K1_LQ"] + 3 * 3 * nb <= stride
+    built = sorted(int(g) for g in re.findall(r"launch_ik_window<(\d+)>", src))
+    assert tuple(built) == dyn_kernel.IK_LANES
+    for lanes in dyn_kernel.IK_LANES:
+        g = dyn_kernel.ik_window_geometry(481, lanes)
+        epb = macro["K1_THREADS"] // lanes
+        assert g["envs_per_block"] == epb and g["blocks"] == -(-481 // epb)
+        assert g["smem_per_block"] == (
+            4 * stride * epb + ctypes.sizeof(dyn_kernel.ChainTab)
+            + ctypes.sizeof(dyn_kernel.CartParams))
+        assert g["smem_per_block"] <= 48 * 1024
+    # lanes per env by batch: 4 where that fills IK_IN_FLIGHT threads, else
+    # a whole warp
+    lanes = {B: dyn_kernel.ik_window_geometry(B)["lanes_per_env"]
+             for B in (1, 480, 2048, 4095, 4096, 8192)}
+    assert lanes == {1: 32, 480: 32, 2048: 32, 4095: 32, 4096: 4, 8192: 4}
+    cc = {k: int(v) for k, v in re.findall(
+        r"#define (CC_\w+) (\d+)\b", (csrc / "dyn_scalar.cuh").read_text())}
+    chain = panda.build_control_chain()
+    assert (cc["CC_NB"], cc["CC_NV"]) == (chain.nb, chain.nv)
+    assert cc["CC_EE"] == chain.body_index("panda_grasptarget")
+    # cc_parent: b - 1 up to the hand (body 9), then the hand
+    np.testing.assert_array_equal(
+        chain.parent, [-1] + [b - 1 if b <= 9 else 9 for b in range(1, nb)])
+    np.testing.assert_array_equal(chain.dof_body, np.arange(1, nv + 1))
