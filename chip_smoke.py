@@ -49,9 +49,26 @@ Phases (each fatal on failure):
      clip, the metrics' range, the launch counts and that a bc rollout
      repeats exactly; print success rate, entropy, score, seconds and
      episode-steps/s;
-  5. print the ``kernels`` JSON line (with ``design``, the PR whose design
-     each kernel is, ``device_ms``, and the B = 480 times and bounds of
-     K1-K3), the card line, and last {"ok": true, "device": {...}}.
+  5. the rod tasks: aligning and sorting with 2, 4 and 6 boxes, each with
+     its Params() at full width (35 substeps, the scene's solver
+     iterations, full arm dynamics); its 480-episode evaluation batch (60
+     contexts x 8; aligning's shipped contexts) from the reset's initial
+     scene through ROD_CHECK_SUBSTEPS hold substeps, then K3's general
+     variant held against its plain version on the next substep's inputs
+     (K2 too, on aligning and sorting_2: one per start pose), K3 timed
+     there with its bound and roofline share; a gmm agent trained on the
+     card on data/<task> (epochs cut to ROD_EPOCHS) and rolled out through
+     the task's Sim in both modes at a cut horizon (its steps timed apart
+     from the reset); checks of finiteness, the frozen episodes, the setpoint clip, the metrics' range, the launch
+     counts (K1 = steps, K2 and K3 = 35 x steps + the reset's hold
+     substeps, no K2 in kinematic mode) and, on aligning and sorting_2, a
+     bc rollout that repeats exactly; prints episode-steps/s and one
+     profiled dynamic step per task (device busy share, launches per
+     substep);
+  6. print the ``kernels`` JSON line (with ``design``, the PR whose design
+     each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
+     and one row of K3's general variant per rod scene), the card line,
+     and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -65,9 +82,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8192
 HOLD_STEPS = PUSH_STEPS = 10
 EVAL_CONTEXTS, EVAL_TRAJS = 30, 16      # the reference workload: 480 episodes
-EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 100, 20   # of the task's 400
-REPEAT_STEPS = 10                       # bc determinism rollouts (kinematic)
+EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 40, 10    # of the task's 400
+REPEAT_STEPS = 5                        # bc determinism rollouts (kinematic)
 ROLLOUT_CHECK_STEPS = 6     # push steps before the B = 480 substep checks
+ROD_TASKS = ("aligning", "sorting_2", "sorting_4", "sorting_6")
+ROD_CONTEXTS, ROD_TRAJS = 60, 8         # their reference workload: 480 episodes
+ROD_EPOCHS = 5                          # of the registry's 100
+ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 4, 2   # of 400 (aligning), 700
+# hold substeps from a reset's initial scene before the B = 480 substep
+# checks, where the contacts carry force: aligning's tray has fallen the
+# 9 mm onto the table, sorting's boxes are still inside the platform
+ROD_CHECK_SUBSTEPS = {"aligning": 50, "sorting_2": 3, "sorting_4": 3,
+                      "sorting_6": 3}
+ROD_REPEAT_TASKS = ("aligning", "sorting_2")   # bc determinism rollouts
+# K2 is held once per distinct arm state: the arm sees no box, so the
+# sorting scenes start it alike and only the start pose tells them apart
+ROD_K2_TASKS = ("aligning", "sorting_2")
+ROD_REPEAT_STEPS = 1
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -270,7 +301,8 @@ def profile_step(params, state, hold):
     if not dev or busy_us <= 0:
         log("profile: not measured (the trace holds no device time)")
         return
-    by_name = top_device_time(dev)
+    by_name = top_device_time((e.name, e.time_range.elapsed_us())
+                              for e in dev)
     memcpy = sum(n for name, (n, _) in by_name.items()
                  if "memcpy" in name.lower())
     log(f"profile of one push step: wall {wall_us / 1e3:.1f} ms (profiler "
@@ -279,12 +311,12 @@ def profile_step(params, state, hold):
 
 
 def top_device_time(dev, k=8):
-    """Device time and count by kernel name over profiler events ``dev``;
+    """Device time and count by kernel name over (name, us) pairs ``dev``;
     prints the ``k`` largest. Returns {name: (count, us)}."""
     by_name = {}
-    for e in dev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    for name, us in dev:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
     for name, (n, t) in top:
         log(f"  {t / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
@@ -322,16 +354,39 @@ class Watch:
         self.prev = pos
 
 
+class TimedReset:
+    """A task's env module whose reset ends with a device synchronize and
+    notes the host clock there, so that a rollout's steps are timed apart
+    from its reset (and the reset's hold substeps)."""
+
+    def __init__(self, env):
+        self.env, self.done_at = env, None
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def reset(self, params, context):
+        import torch
+        state = self.env.reset(params, context)
+        torch.cuda.synchronize()
+        self.done_at = time.perf_counter()
+        return state
+
+
 def eval_rollout(spec, agent, q_init, kinematic, steps, counters, card,
-                 seed=0, watch=True):
-    """The reference workload (30 x 16 episodes in lockstep) for ``steps``
-    env steps with the kernel counts zeroed just before and read just
-    after. Returns (final state, dones, metrics, launches, seconds, Watch)."""
+                 seed=0, watch=True, workload=(EVAL_CONTEXTS, EVAL_TRAJS)):
+    """The task's Sim on ``workload`` (contexts x trajectories; pushing's
+    reference workload, 30 x 16 episodes in lockstep, by default) for
+    ``steps`` env steps with the kernel counts zeroed just before and read
+    just after. Returns (final state, dones, metrics, launches, seconds of
+    the steps, seconds of the reset, Watch)."""
     import torch
     params = spec.make_params(kinematic=kinematic, max_steps=steps,
                               device="cuda", q_init=q_init)
-    sim = spec.make_sim(seed=seed, n_contexts=EVAL_CONTEXTS,
-                        n_trajectories_per_context=EVAL_TRAJS)
+    sim = spec.make_sim(seed=seed, n_contexts=workload[0],
+                        n_trajectories_per_context=workload[1])
+    env = TimedReset(sim.env())
+    sim.env = lambda: env
     w = Watch(params.device) if watch else None
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -339,9 +394,10 @@ def eval_rollout(spec, agent, q_init, kinematic, steps, counters, card,
     t0 = time.perf_counter()
     state, dones = sim.run_episodes(agent, params, on_step=w)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    t1 = time.perf_counter()
     launches = {k: fn.launches for k, fn in counters.items()}
-    return state, dones, sim.score(state), launches, seconds, w
+    return (state, dones, sim.score(state), launches, t1 - env.done_at,
+            env.done_at - t0, w)
 
 
 def profile_eval_step(spec, agent, q_init, card):
@@ -407,7 +463,7 @@ def profile_eval_step(spec, agent, q_init, card):
     log(f"eval step profile at B = {n}: wall {wall_us / 1e3:.1f} ms "
         f"(profiler on), device busy {busy_us / 1e3:.1f} ms "
         f"({busy_us / wall_us:.1%}), {len(dev)} device activities [{card}]")
-    top_device_time(dev)
+    top_device_time((e.name, e.time_range.elapsed_us()) for e in dev)
 
 
 def scaled_err(a, b):
@@ -693,6 +749,209 @@ def main_path_kernels(params, dev):
     return kernels, k1_in, k1_out, k4w_out, (ddg, fold)
 
 
+def rod_hold_action(tcp):
+    """The rod tasks' hold action: the tcp's xyz, the rod pointing down."""
+    import torch
+    down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=tcp.device)
+    return torch.cat([tcp, down.expand(tcp.shape[0], 4)], dim=1)
+
+
+def rod_substep_kernels(spec, params, tols):
+    """K2 and K3 on one real substep of a rod task's evaluation batch: the
+    task's Sim's 60 x 8 episodes (B = 480) start from their reset's initial
+    scene, held for ROD_CHECK_SUBSTEPS substeps, and the window of a hold
+    at the tcp (K1) and its first substep are formed as run_substeps_bm
+    forms them, through the wrappers. Returns the records for hold_kernel:
+    K3 (timed; its general variant on every rod scene) and K2."""
+    import torch
+    from d3il_tpu_torch.control import cartesian
+    from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
+                                       substep_bm)
+    from d3il_tpu_torch.envs import common
+    from d3il_tpu_torch.eval import sims
+    env, st, n_sub = spec.env(), params.statics, params.n_substeps
+    sim = spec.make_sim(n_contexts=ROD_CONTEXTS,
+                        n_trajectories_per_context=ROD_TRAJS)
+    cidx, _ = sims._grid(ROD_CONTEXTS, ROD_TRAJS, 0, params.device)
+    held = ROD_CHECK_SUBSTEPS[spec.name]
+    sc = common.settle(params, env.initial_scene(
+        params, tuple(x[cidx] for x in sim.contexts(params))), n=held)
+    cs = cartesian.init_state(sc.q[:, :7].clone())
+    tcp, _ = params.tcp_pose(sc)
+    hold = rod_hold_action(tcp)
+    n = hold.shape[0]
+    bm = lambda x: torch.movedim(x, 0, -1).contiguous()
+    sb = substep_bm.scene_to_bm(sc)
+    k1_out = dyn_kernel.ik_window_bm(
+        st.ik, n_sub, bm(cs.q_virt), bm(cs.old_des_vel), bm(hold[:, :3]),
+        bm(hold[:, 3:]))
+    sw = torch.full((n,), 0.04, device=params.device)
+    gf = torch.zeros(n, dtype=torch.bool, device=params.device)
+    k2_in = (sb.q, sb.qd, k1_out[2][0], k1_out[3][0], k1_out[4][0], sw, gf)
+    arm_out = dyn_kernel.arm_stage_bm(st.arm, *k2_in)
+    k3_in = substep_bm.contact_inputs(st, sb, arm_out)
+    k3_out = contact_kernel.phase_batched_bm(st.contact, *k3_in)
+    active = (k3_in[2] > 0).float().sum(0).mean().item()
+    loaded = (k3_out[0].abs().amax(dim=1) > 0).float().sum(0).mean().item()
+    log(f"{spec.name} substep (B = {n}, after {held} hold substeps from "
+        f"the reset's initial scene): {active:.1f} of {st.meta.ncon} "
+        f"contacts with depth > 0 per env, {loaded:.1f} carrying force")
+    k3 = dict(name=f"contact_phase_general_{spec.name}", key="K3",
+              route="cuda", design="general variant, first design",
+              source="d3il_tpu_torch/csrc/contact_kernel.cu",
+              replaces="d3il_tpu/engine/contact_kernel.py:345",
+              out=k3_out, ins=k3_in, reps=(10, 3),
+              run=lambda: contact_kernel.phase_batched_bm(st.contact, *k3_in),
+              plain=lambda: contact_kernel.phase_plain(st.meta, *k3_in),
+              names=("f", "qfrc"), tols=tols["K3"])
+    k2 = dict(name=f"arm_stage_b{n}_{spec.name}", key="K2", out=arm_out,
+              ins=k2_in, names=("xpos", "xquat", "axes", "anchors", "Minv",
+                                "qd_pre", "a_arm"), tols=tols["K2"],
+              plain=lambda: dyn_kernel.arm_stage_plain(
+                  st.arm, *k2_in[:6], k2_in[6].to(torch.float32)))
+    return k3, k2
+
+
+def profile_rod_step(spec, params, state, card, top=False):
+    """One dynamic env step of a rod task at its batch under
+    torch.profiler: wall time, device busy share and device launches per
+    substep (each of the window's substeps, K1 and the step's glue spread
+    over them). The trace's raw events are read, not the profiler's
+    FunctionEvents, which it builds in Python for each of up to a quarter
+    of a million events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tcp, _ = params.tcp_pose(state.scene)
+    hold = rod_hold_action(tcp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        spec.env().step(params, state, hold)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [(e.name(), e.duration_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    busy_us = sum(us for _, us in dev)
+    if not dev or busy_us <= 0:
+        log(f"{spec.name} step profile: not measured (the trace holds no "
+            f"device time)")
+        return
+    log(f"{spec.name} step profile at B = {hold.shape[0]}: wall "
+        f"{wall_us / 1e3:.1f} ms (profiler on), device busy "
+        f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}), {len(dev)} "
+        f"device activities = {len(dev) / params.n_substeps:.0f} per "
+        f"substep [{card}]")
+    if top:
+        top_device_time(dev)
+
+
+def rod_tasks(counters, tols, card):
+    """Phase 5: aligning and sorting with 2, 4 and 6 boxes, each through
+    its Params() at full width, K3's general variant held on a real
+    substep of its evaluation batch, a gmm agent trained on its demos and
+    its Sim's rollout of 60 x 8 episodes in both modes. Returns the K3
+    records for the kernels line."""
+    import torch
+    import run_eval_torch
+    import run_train_torch
+    from d3il_tpu_torch import registry
+    rows, failed, problems = [], [], []
+    n_eps = ROD_CONTEXTS * ROD_TRAJS
+    for task in ROD_TASKS:
+        spec = registry.TASKS[task]
+        t0 = t_task = time.perf_counter()
+        params = spec.make_params(device="cuda")
+        torch.cuda.synchronize()
+        meta, n_sub = params.statics.meta, params.n_substeps
+        log(f"{task}: params {time.perf_counter() - t0:.1f} s; "
+            f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
+            f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
+            f"iterations; K3 {params.statics.contact.geometry}")
+        k3, k2 = rod_substep_kernels(spec, params, tols)
+        if task in ROD_K2_TASKS:
+            hold_kernel(k2, card, failed, timed=False)
+        hold_kernel(k3, card, failed)
+        log(f"{task} K3 general variant at B = {n_eps}: roofline share "
+            f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
+        ckpt = os.path.join(ROOT, "build", "chip_smoke", f"{task}_gmm.pt")
+        targs = run_train_torch.make_args(
+            task=task, agent="gmm", device="cuda", skip_eval=True, ckpt=ckpt,
+            epochs=ROD_EPOCHS, data=os.path.join(ROOT, "data"))
+        row = run_train_torch.run_one(targs)
+        log(f"{task}: trained gmm for {targs.epochs} epochs (cut from "
+            f"{spec.train_kw['epochs']}) in {row['train_seconds']} s, final "
+            f"train loss {row['final_train_loss']} [{card}]")
+        _, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
+        settle = spec.env().SETTLE_SUBSTEPS
+        for mode, kin, T in (("dynamic", False, ROD_STEPS_DYNAMIC),
+                             ("kinematic", True, ROD_STEPS_KINEMATIC)):
+            state, dones, out, ln, secs, reset_s, w = eval_rollout(
+                spec, agent, params.q_init, kin, T, counters, card,
+                workload=(ROD_CONTEXTS, ROD_TRAJS))
+            k3["launches_eval_" + mode] = ln["K3"]
+            want = {"K1": T, "K2": 0 if kin else T * n_sub + settle,
+                    "K3": T * n_sub + settle, "K4": 0}
+            finite = bool(w.finite.item()) and all(
+                torch.isfinite(x).all().item() for x in leaves(state)
+                if x.is_floating_point())
+            frozen = bool((dones[1:] | ~dones[:-1]).all().item())
+            log(f"{task} ({mode}): {n_eps} episodes x {T} steps (horizon "
+                f"cut from {spec.max_steps}) in {secs:.2f} s = "
+                f"{n_eps * T / secs:.1f} episode-steps/s, after a reset of "
+                f"{reset_s:.2f} s ({settle} hold substeps); "
+                + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+                + f"; max setpoint move per step {w.max_delta.item():.5f} m;"
+                f" all finite: {finite}; launches {ln} expected {want} "
+                f"[{card}]")
+            bad = []
+            if not finite:
+                bad.append("non-finite state")
+            if not frozen:
+                bad.append("done went back to false")
+            if w.max_delta.item() > 0.01 + 1e-6:
+                bad.append(f"setpoint moved {w.max_delta.item()} m in a step")
+            in01 = ("success_rate", "entropy") + (
+                ("score",) if task == "aligning" else ())
+            if not all(0.0 <= out[k] <= 1.0 for k in in01):
+                bad.append(f"metrics out of [0, 1]: {out}")
+            if task != "aligning" and not out["kl"] >= -1e-6:
+                bad.append(f"negative KL: {out}")
+            if ln != want:
+                bad.append(f"launch counts {ln} != {want}")
+            problems += [f"{task} ({mode}): {b}" for b in bad]
+            if mode == "dynamic":
+                profile_rod_step(spec, params, state, card,
+                                 top=task == ROD_TASKS[-1])
+        rows.append(k3)
+        log(f"{task}: {time.perf_counter() - t_task:.1f} s in all")
+        if task not in ROD_REPEAT_TASKS:
+            continue
+        bc, _ = registry.make_agent(
+            "bc", torch.Generator(device="cuda").manual_seed(3), spec.obs_dim,
+            spec.act_dim, agent.scaler)
+        finals = [eval_rollout(spec, bc, params.q_init, True,
+                               ROD_REPEAT_STEPS, counters, card, seed=5,
+                               watch=False,
+                               workload=(ROD_CONTEXTS, ROD_TRAJS))[0]
+                  for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(leaves(finals[0]),
+                                                     leaves(finals[1])))
+        log(f"{task}: bc rolled out twice ({n_eps} episodes x "
+            f"{ROD_REPEAT_STEPS} kinematic steps, seed 5): final states "
+            f"identical: {same}")
+        if not same:
+            problems.append(f"{task}: the bc rollout does not repeat")
+    if failed:
+        raise SystemExit(f"rod tasks: kernels disagree with their plain "
+                         f"versions: {failed}")
+    if problems:
+        raise SystemExit("rod tasks failed: " + "; ".join(problems))
+    return rows
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -706,6 +965,8 @@ def main(kernels_only=False):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    since = lambda: f"{time.perf_counter() - t_start:.1f} s into the run"
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
@@ -722,6 +983,7 @@ def main(kernels_only=False):
                 log(f"  ptxas {name} {entry}: {regs}; {spill}")
 
     # ---- phase 2: kernels vs plain at main-path shapes ------------------
+    log(f"phase 2: {since()}")
     t0 = time.perf_counter()
     params = pushing.PushingParams()            # 35 substeps, 25 iterations
     torch.cuda.synchronize()
@@ -796,6 +1058,7 @@ def main(kernels_only=False):
         return 0
 
     # ---- phase 3: the main path ----------------------------------------
+    log(f"phase 3: {since()}")
     counters = {"K1": dyn_kernel.ik_window_bm, "K2": dyn_kernel.arm_stage_bm,
                 "K3": contact_kernel.phase_batched_bm,
                 "K4": dyn_kernel.feedforward_bm}
@@ -894,6 +1157,7 @@ def main(kernels_only=False):
     profile_step(params, state, hold)
 
     # ---- phase 4: the evaluation path -----------------------------------
+    log(f"phase 4: {since()}")
     import run_eval_torch
     import run_train_torch
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "pushing_gmm.pt")
@@ -910,7 +1174,7 @@ def main(kernels_only=False):
     eval_launches = {}
     for mode, kin, T in (("dynamic", False, EVAL_STEPS_DYNAMIC),
                          ("kinematic", True, EVAL_STEPS_KINEMATIC)):
-        state, dones, out, ln, secs, w = eval_rollout(
+        state, dones, out, ln, secs, reset_s, w = eval_rollout(
             spec, agent, params.q_init, kin, T, counters, card)
         eval_launches[mode] = ln
         want = {"K1": T, "K2": 0 if kin else T * n_sub + 2,
@@ -922,7 +1186,8 @@ def main(kernels_only=False):
         frozen = bool((dones[1:] | ~dones[:-1]).all().item())
         log(f"eval path ({mode}): {n_eps} episodes x {T} steps (horizon cut "
             f"from {spec.max_steps}) in {secs:.2f} s = "
-            f"{n_eps * T / secs:.1f} episode-steps/s; success_rate "
+            f"{n_eps * T / secs:.1f} episode-steps/s, after a reset of "
+            f"{reset_s:.2f} s; success_rate "
             f"{out['success_rate']:.4f}, entropy {out['entropy']:.4f}, score "
             f"{out['score']:.4f}; done at the end in "
             f"{dones[-1].float().mean().item():.1%} of episodes; max setpoint "
@@ -958,17 +1223,27 @@ def main(kernels_only=False):
         raise SystemExit("eval path failed: the bc rollout does not repeat")
     profile_eval_step(spec, agent, params.q_init, card)
 
-    # ---- phase 5: report --------------------------------------------------
+    # ---- phase 5: the rod tasks ----------------------------------------
+    log(f"phase 5: {since()}")
+    rod_rows = rod_tasks(counters, tols, card)
+
+    # ---- phase 6: report --------------------------------------------------
+    log(f"phase 6: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
-    # (launches_path 0, launches_window_check 1)
+    # (launches_path 0, launches_window_check 1); each rod scene's K3 row
+    # its own dynamic rollout's count
     print(json.dumps({"kernels": [
         line(kk, launches=launches[kk["key"]] or window_launches[kk["key"]],
              launches_path=launches[kk["key"]],
              launches_window_check=window_launches[kk["key"]],
              launches_eval_dynamic=eval_launches["dynamic"][kk["key"]],
              launches_eval_kinematic=eval_launches["kinematic"][kk["key"]])
-        for kk in kernels if kk.get("report", True)]}))
+        for kk in kernels if kk.get("report", True)] + [
+        line(kk, launches=kk["launches_eval_dynamic"],
+             launches_eval_dynamic=kk["launches_eval_dynamic"],
+             launches_eval_kinematic=kk["launches_eval_kinematic"])
+        for kk in rod_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

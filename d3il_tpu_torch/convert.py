@@ -1,8 +1,9 @@
 """Carry parameters, weights and state across from the JAX package as NumPy.
 
-The JAX package's ``PushingState`` is a pytree of NamedTuples; passed
-through ``numpy`` (e.g. ``jax.tree_util.tree_map(np.asarray, state)``) it
-has the same fields as the port's ``PushingState``. These helpers take and
+A rod task's state in the JAX package (``PushingState``, ``AligningState``,
+``SortingState``) is a pytree of NamedTuples; passed through ``numpy``
+(e.g. ``jax.tree_util.tree_map(np.asarray, state)``) it has the same fields
+as the port's state of that name. These helpers take and
 give nested mappings or NamedTuples of NumPy arrays, batch first, and never
 touch JAX. Agent weights cross the same way: a Flax parameter tree as nested
 dicts of NumPy arrays becomes the port's ``{name: tensor}`` parameters.
@@ -31,39 +32,41 @@ def _tensor(x, device):
     return torch.as_tensor(x.astype(np.float32), device=device)
 
 
-def pushing_state_from_numpy(state, device=None) -> pushing.PushingState:
-    """A batched pushing state (mapping or NamedTuple of NumPy arrays with
-    ``scene`` and ``ctrl`` sub-structures) -> the port's PushingState."""
+def state_from_numpy(state, state_cls=pushing.PushingState, device=None):
+    """A batched rod-task state (mapping or NamedTuple of NumPy arrays with
+    ``scene`` and ``ctrl`` sub-structures, e.g. the JAX package's
+    ``AligningState`` passed through ``numpy``) -> the port's ``state_cls``
+    (``PushingState``, ``AligningState``, ``SortingState``)."""
     dev = common.resolve_device(device)
     sc, cs = _get(state, "scene"), _get(state, "ctrl")
-    return pushing.PushingState(
+    return state_cls(
         scene=SceneState(*(_tensor(_get(sc, f), dev)
                            for f in SceneState._fields)),
         ctrl=CartImpedanceState(*(_tensor(_get(cs, f), dev)
                                   for f in CartImpedanceState._fields)),
         **{f: _tensor(_get(state, f), dev)
-           for f in pushing.PushingState._fields if f not in ("scene", "ctrl")})
+           for f in state_cls._fields if f not in ("scene", "ctrl")})
 
 
-def pushing_state_to_numpy(state: pushing.PushingState) -> dict:
-    """The port's PushingState -> nested dict of NumPy arrays."""
+def state_to_numpy(state) -> dict:
+    """A rod-task state of the port -> nested dict of NumPy arrays."""
     np_ = lambda t: t.detach().cpu().numpy()
-    out = {f: np_(getattr(state, f)) for f in pushing.PushingState._fields
+    out = {f: np_(getattr(state, f)) for f in state._fields
            if f not in ("scene", "ctrl")}
     out["scene"] = {f: np_(x) for f, x in state.scene._asdict().items()}
     out["ctrl"] = {f: np_(x) for f, x in state.ctrl._asdict().items()}
     return out
 
 
-def params_from_numpy(q_init, n_substeps: int = 35, max_steps: int = 400,
-                      solver_iters: int = 25, kinematic: bool = False,
-                      device=None):
-    """PushingParams whose episode start posture is ``q_init`` (e.g. the
-    JAX package's ``PushingParams.q_init``), so both start alike."""
-    return pushing.PushingParams(n_substeps=n_substeps, max_steps=max_steps,
-                                 solver_iters=solver_iters,
-                                 kinematic=kinematic, device=device,
-                                 q_init=np.asarray(q_init, np.float64))
+def params_from_numpy(q_init, params_cls=pushing.PushingParams, device=None,
+                      **kw):
+    """A rod task's Params (``params_cls``: ``PushingParams``,
+    ``AligningParams``, ``SortingParams``) whose episode start posture is
+    ``q_init`` (e.g. the JAX package's ``Params.q_init``), so both start
+    alike; ``kw`` are the class's own arguments (n_substeps, max_steps,
+    kinematic, num_boxes, ...)."""
+    return params_cls(device=device, q_init=np.asarray(q_init, np.float64),
+                      **kw)
 
 
 def _dense(tree, prefix: str, out: dict, device) -> None:

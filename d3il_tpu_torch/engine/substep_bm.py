@@ -1,6 +1,12 @@
-"""The batched substep window: one pushing env step under full arm dynamics.
+"""The batched substep window: one rod-task env step (pushing, aligning,
+sorting with 2, 4 or 6 boxes) under full arm dynamics.
 
-Counterpart of ``d3il_tpu/engine/substep_bm.py`` (with the kernels on). Batch-first state goes in and out; inside the window every
+Counterpart of ``d3il_tpu/engine/substep_bm.py`` (with the kernels on);
+every size comes from the scene (``nf`` free bodies, one inertia each,
+compound or not; ``ncon`` contact rows). Unlike the JAX package, which
+takes this window only where its contact kernel's tile test passes, every
+scene with free bodies runs it (sorting_4 and sorting_6 through K3's
+general variant). Batch-first state goes in and out; inside the window every
 tensor is batch-minor (``[..., B]``), the layout the three kernels read
 with neighbouring threads on neighbouring addresses:
 

@@ -13,10 +13,12 @@ k sees the env state as of the entry of step k-1.
 
   obs_policy_k = concat(prev_abs_action_xy, obs_returned_by_step_{k-1})
   delta        = policy(obs_policy_k)
-  abs_xy       = delta + prev_abs_action_xy
+  abs_xy       = clip(delta, +-0.01) + prev_abs_action_xy
   env action   = [abs_xy, fixed_z, 0, 1, 0, 0]
 
-with prev_abs_action initialized to the tcp position after reset.
+with prev_abs_action initialized to the tcp position after reset. With
+``pos_dim=3`` (aligning) the whole xyz setpoint is the policy's: the delta
+is xyz, clipped alike, and there is no fixed z.
 """
 from __future__ import annotations
 
@@ -39,14 +41,17 @@ def _freeze(mask, new, old):
     return _map2(pick, new, old)
 
 
-def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply):
-    """(init, body) pair for the planar Cartesian-delta tasks.
+def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply,
+                     pos_dim: int = 2):
+    """(init, body) pair for the Cartesian-delta tasks: planar
+    (``pos_dim=2``, z fixed at the tcp's height after reset) or xyz
+    (``pos_dim=3``).
 
     init(policy_carry0, context) -> carry
     body(policy_params, carry) -> carry   (one env step; frozen when done)
 
-    carry = (env state, policy carry, prev_pos [B, 2], prev_obs
-    [B, Do], finished [B] bool, fixed_z [B, 1]).
+    carry = (env state, policy carry, prev_pos [B, pos_dim], prev_obs
+    [B, Do], finished [B] bool, fixed_z [B, 1]; unread with pos_dim=3).
     """
     def init(policy_carry0, context):
         state = reset_fn(params, context)
@@ -54,7 +59,7 @@ def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply):
         obs0 = observe_fn(params, state)
         finished = torch.zeros(tcp_pos.shape[0], dtype=torch.bool,
                                device=tcp_pos.device)
-        return (state, policy_carry0, tcp_pos[:, :2].contiguous(), obs0,
+        return (state, policy_carry0, tcp_pos[:, :pos_dim].contiguous(), obs0,
                 finished, tcp_pos[:, 2:3].contiguous())
 
     down = torch.tensor([0.0, 1.0, 0.0, 0.0], device=params.device)
@@ -64,9 +69,9 @@ def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply):
         obs_policy = torch.cat([prev_pos, prev_obs], dim=1)
         pc2, delta = policy_apply(policy_params, pc, obs_policy)
         # the reference envs bound the per-step delta (action_space +-0.01)
-        abs_pos = torch.clamp(delta[:, :2], -0.01, 0.01) + prev_pos
-        action = torch.cat([abs_pos, fixed_z,
-                            down.expand(abs_pos.shape[0], 4)], dim=1)
+        abs_pos = torch.clamp(delta[:, :pos_dim], -0.01, 0.01) + prev_pos
+        pos3 = abs_pos if pos_dim == 3 else torch.cat([abs_pos, fixed_z], 1)
+        action = torch.cat([pos3, down.expand(abs_pos.shape[0], 4)], dim=1)
         new_state, res = step_fn(params, state, action)
         state2 = _freeze(finished, new_state, state)
         pc2 = _freeze(finished, pc2, pc)
@@ -79,7 +84,7 @@ def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply):
 
 
 def make_rod_rollout(params, reset_fn, step_fn, observe_fn, policy_apply,
-                     max_steps: int | None = None):
+                     max_steps: int | None = None, pos_dim: int = 2):
     """Whole-episode rollout (see make_rod_stepper).
 
     Returns rollout(policy_params, policy_carry0, context, on_step=None)
@@ -88,7 +93,7 @@ def make_rod_rollout(params, reset_fn, step_fn, observe_fn, policy_apply,
     """
     T = max_steps if max_steps is not None else params.max_steps
     init, body = make_rod_stepper(params, reset_fn, step_fn, observe_fn,
-                                  policy_apply)
+                                  policy_apply, pos_dim)
 
     @torch.no_grad()
     def rollout(policy_params, policy_carry0, context, on_step=None):

@@ -12,6 +12,9 @@ files were generated with.
 """
 from __future__ import annotations
 
+import itertools
+import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,8 +49,48 @@ def _grid(n_contexts: int, n_trajs: int, seed: int, device):
     return cidx, torch.Generator(device=device).manual_seed(seed + 1)
 
 
+class _RodSim:
+    """What the rod tasks' Sims share: every (context, trajectory) episode
+    of the grid rolled out in lockstep through ``rollout.make_rod_rollout``.
+    A task's Sim names its env module, its default params, its context set,
+    the policy's input width and the rollout form (``pos_dim``)."""
+
+    pos_dim = 2
+
+    def env(self):
+        raise NotImplementedError
+
+    def default_params(self):
+        raise NotImplementedError
+
+    def contexts(self, params) -> tuple:
+        raise NotImplementedError
+
+    def obs_dim(self) -> int:
+        raise NotImplementedError
+
+    def run_episodes(self, agent, params=None, on_step=None):
+        """Roll every (context, trajectory) episode to params.max_steps;
+        returns (final env state [C*T, ...], dones [max_steps, C*T])."""
+        env = self.env()
+        params = params or self.default_params()
+        ctxs = self.contexts(params)
+        cidx, gen = _grid(self.n_contexts, self.n_trajectories_per_context,
+                          self.seed, params.device)
+        run = rollout.make_rod_rollout(
+            params, env.reset, env.step, env.get_observation,
+            agent.policy_apply(gen), pos_dim=self.pos_dim)
+        carry0 = agent.init_carry(self.obs_dim(), cidx.shape[0])
+        return run(agent.params, carry0, tuple(x[cidx] for x in ctxs),
+                   on_step=on_step)
+
+    def test_agent(self, agent, params=None):
+        state, _ = self.run_episodes(agent, params)
+        return self.score(state)
+
+
 @dataclass
-class PushingSim:
+class PushingSim(_RodSim):
     """Default workload = the reference benchmark's 30 contexts x 16 trajs,
     on the reference's shipped fixed test contexts."""
     seed: int = 0
@@ -55,22 +98,20 @@ class PushingSim:
     n_trajectories_per_context: int = 16
     use_reference_contexts: bool = True
 
-    def run_episodes(self, agent, params=None, on_step=None):
-        """Roll every (context, trajectory) episode to params.max_steps;
-        returns (final env state [C*T, ...], dones [max_steps, C*T])."""
-        from d3il_tpu_torch.envs import pushing as env
-        params = params or pushing_params()
-        ctxs = _fixed_or_sampled(ref_contexts.pushing_contexts,
-                                 env.sample_context, self.n_contexts,
+    def env(self):
+        from d3il_tpu_torch.envs import pushing
+        return pushing
+
+    def default_params(self):
+        return pushing_params()
+
+    def contexts(self, params):
+        return _fixed_or_sampled(ref_contexts.pushing_contexts,
+                                 self.env().sample_context, self.n_contexts,
                                  self.use_reference_contexts, params.device)
-        cidx, gen = _grid(self.n_contexts, self.n_trajectories_per_context,
-                          self.seed, params.device)
-        run = rollout.make_rod_rollout(
-            params, env.reset, env.step, env.get_observation,
-            agent.policy_apply(gen))
-        carry0 = agent.init_carry(10, cidx.shape[0])
-        return run(agent.params, carry0, tuple(x[cidx] for x in ctxs),
-                   on_step=on_step)
+
+    def obs_dim(self):
+        return 10       # des xy + robot xy + 2 x (box xy, tan yaw)
 
     def score(self, state) -> dict:
         C, T = self.n_contexts, self.n_trajectories_per_context
@@ -78,12 +119,118 @@ class PushingSim:
             state.success.to(torch.float32).reshape(C, T),
             state.mode.reshape(C, T)).items()}
 
-    def test_agent(self, agent, params=None):
+
+@dataclass
+class AligningSim(_RodSim):
+    """Default workload = 60 contexts x 8 trajs on the reference's shipped
+    fixed contexts; the policy moves the setpoint in xyz."""
+    seed: int = 0
+    n_contexts: int = 60
+    n_trajectories_per_context: int = 8
+
+    pos_dim = 3
+
+    def env(self):
+        from d3il_tpu_torch.envs import aligning
+        return aligning
+
+    def default_params(self):
+        return aligning_params()
+
+    def contexts(self, params):
+        return _fixed_or_sampled(ref_contexts.aligning_contexts,
+                                 self.env().sample_context, self.n_contexts,
+                                 True, params.device)
+
+    def obs_dim(self):
+        return 20       # des xyz + the 17-dim observation
+
+    def score(self, state) -> dict:
+        env = self.env()
+        pos_d = torch.linalg.vector_norm(
+            state.scene.free_pos[:, 0] - state.target_pos, dim=-1)
+        rot_d = env.rotation_distance(state.scene.free_quat[:, 0],
+                                      state.target_quat) / math.pi
+        C, T = self.n_contexts, self.n_trajectories_per_context
+        return {k: float(v) for k, v in metrics.aligning_score(
+            state.success.to(torch.float32).reshape(C, T),
+            state.mode.reshape(C, T),
+            (0.5 * (pos_d + rot_d)).reshape(C, T)).items()}
+
+
+@dataclass
+class SortingSim(_RodSim):
+    """Mode = bit-packed color order; score SR - KL against the demo mode
+    prior (the generated demos' mode histogram when the task's data
+    directory exists, else uniform over the balanced color orders).
+    Default workload = 60 contexts x 8 trajs, sampled from seed 2 (no
+    context file is shipped for sorting)."""
+    seed: int = 0
+    num_boxes: int = 2
+    n_contexts: int = 60
+    n_trajectories_per_context: int = 8
+
+    def env(self):
+        from d3il_tpu_torch.envs import sorting
+        return sorting
+
+    def default_params(self):
+        return sorting_params(self.num_boxes)
+
+    def contexts(self, params):
+        gen = torch.Generator(device=params.device).manual_seed(CONTEXT_SEED)
+        return self.env().sample_context(gen, self.n_contexts, self.num_boxes)
+
+    def obs_dim(self):
+        return 4 + 3 * self.num_boxes  # des xy + robot xy + per box xy, yaw
+
+    def mode_prior(self):
+        """(mode_keys, prior): the demos' mode histogram of the task's data
+        directory beside the reference contexts, else uniform."""
+        task_dir = os.path.join(os.path.dirname(ref_contexts.REF_DIR),
+                                f"sorting_{self.num_boxes}")
+        demo = (ref_contexts.mode_prior_from_demos(task_dir)
+                if os.path.isdir(task_dir) else None)
+        return demo if demo is not None \
+            else sorting_uniform_prior(self.num_boxes)
+
+    def score(self, state, mode_keys=None, prior=None) -> dict:
+        if mode_keys is None:
+            mode_keys, prior = self.mode_prior()
+        modes = self.env().decode_mode(state.mode, self.num_boxes)
+        C, T = self.n_contexts, self.n_trajectories_per_context
+        return {k: float(v) for k, v in metrics.sorting_score(
+            state.success.to(torch.float32).reshape(C, T),
+            modes.reshape(C, T), mode_keys, prior).items()}
+
+    def test_agent(self, agent, params=None, mode_keys=None, prior=None):
         state, _ = self.run_episodes(agent, params)
-        return self.score(state)
+        return self.score(state, mode_keys, prior)
+
+
+def sorting_uniform_prior(num_boxes: int):
+    """All bit-packed encodings of balanced red/blue orders, uniform prior."""
+    half = num_boxes // 2
+    keys = sorted({
+        sum(b << (7 - i) for i, b in enumerate(bits))
+        for bits in itertools.permutations([0] * half + [1] * half)})
+    keys = np.asarray(keys, np.int32)
+    return keys, np.full(len(keys), 1.0 / len(keys), np.float32)
 
 
 def pushing_params(**kw):
     """The task's default params (35 substeps, full arm dynamics)."""
     from d3il_tpu_torch.envs import pushing
     return pushing.PushingParams(**kw)
+
+
+def aligning_params(**kw):
+    """The task's default params (35 substeps, 30 solver iterations)."""
+    from d3il_tpu_torch.envs import aligning
+    return aligning.AligningParams(**kw)
+
+
+def sorting_params(num_boxes: int, **kw):
+    """The task's default params (35 substeps, 25 solver iterations)."""
+    from d3il_tpu_torch.envs import sorting
+    return sorting.SortingParams(num_boxes, **kw)

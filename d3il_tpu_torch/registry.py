@@ -12,6 +12,7 @@ not ported yet raises a KeyError that names what is.
 """
 from __future__ import annotations
 
+import functools
 import importlib
 from dataclasses import dataclass, field
 from typing import Callable
@@ -43,7 +44,10 @@ class TaskSpec:
         return getattr(self.env(), self.params_name)(**merged)
 
     def make_sim(self, **kw):
+        """The task's Sim; a scene's box count is its Sim's too."""
         from d3il_tpu_torch.eval import sims
+        if "num_boxes" in self.params_kw:
+            kw.setdefault("num_boxes", self.params_kw["num_boxes"])
         return getattr(sims, self.sim_name)(**kw)
 
 
@@ -59,13 +63,28 @@ class _Ported(dict):
                        f"yet; ported: {sorted(self)}")
 
 
+def _sorting(n: int) -> TaskSpec:
+    return TaskSpec(
+        f"sorting_{n}", "d3il_tpu_torch.envs.sorting", "SortingParams",
+        functools.partial(ds.assemble_sorting, n_boxes=n), 4 + 3 * n, 2,
+        "SortingSim", 700, params_kw={"num_boxes": n},
+        train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 8})
+
+
+# Workloads follow the reference benchmark scripts: pushing 30 contexts x
+# 16 trajectories, aligning and sorting 60 x 8. The rollout form (a planar
+# or, for aligning, an xyz setpoint) is the task's Sim's (eval/sims.py).
 TASKS: dict[str, TaskSpec] = _Ported("task", {
-    # workload of the reference benchmark scripts: 30 contexts x 16
-    # trajectories; the tuned training window stays 1 (see the JAX registry)
+    # the tuned training window stays 1 (see the JAX registry)
     "pushing": TaskSpec(
         "pushing", "d3il_tpu_torch.envs.pushing", "PushingParams",
         ds.assemble_pushing, 10, 2, "PushingSim", 400,
         train_kw={"epochs": 100, "n_contexts": 30, "n_trajs": 16}),
+    "aligning": TaskSpec(
+        "aligning", "d3il_tpu_torch.envs.aligning", "AligningParams",
+        ds.assemble_aligning, 20, 3, "AligningSim", 400,
+        train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 8}),
+    **{f"sorting_{n}": _sorting(n) for n in (2, 4, 6)},
 })
 
 

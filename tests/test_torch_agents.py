@@ -317,7 +317,8 @@ def test_fit_lowers_the_loss():
 
 
 def test_registry_names_what_is_ported():
-    assert sorted(registry.TASKS) == ["pushing"]
+    assert sorted(registry.TASKS) == ["aligning", "pushing", "sorting_2",
+                                      "sorting_4", "sorting_6"]
     assert sorted(registry.AGENTS) == ["bc", "gmm"]
     with pytest.raises(KeyError, match="ported.*pushing"):
         registry.TASKS["stacking"]

@@ -236,3 +236,96 @@ def test_feedforward_kernel_matches_plain(cuda_device, B):
         dyn_kernel.feedforward_bm(spec, ins[0].to(cuda_device),
                                   ins[1][:6].to(cuda_device),
                                   ins[2].to(cuda_device))
+
+
+# the start postures of the aligning and sorting tasks (the JAX package's
+# AligningParams.q_init and SortingParams.q_init)
+Q_INIT_ALIGNING = np.array([-0.40412223, 0.32504207, -0.20123088,
+                            -1.84203374, 0.07952347, 2.16244817, 0.14624882])
+Q_INIT_SORTING = np.array([-0.33100116, 0.24833255, -0.19925672,
+                           -1.95236027, 0.06261307, 2.19832397, 0.22458877])
+ROD_SCENES = ("aligning", "sorting_2", "sorting_4", "sorting_6")
+
+
+def _rod_scene_state(task, B, device, settle):
+    """A rod task's params on ``device`` and its reset's initial scene from
+    seeded contexts after ``settle`` hold substeps, while the contacts carry
+    force: sorting's boxes start inside the platform (z = 0.05) and are
+    pushed out of it; aligning's tray is lowered to 0.5 mm into the table."""
+    from d3il_tpu_torch.envs import aligning, common, sorting
+    gen = torch.Generator().manual_seed(11)
+    if task == "aligning":
+        env = aligning
+        params = aligning.AligningParams(n_substeps=4, device=device,
+                                         q_init=Q_INIT_ALIGNING)
+        ctx = aligning.sample_context(gen, B)
+    else:
+        env, n = sorting, int(task.split("_")[1])
+        params = sorting.SortingParams(n, n_substeps=4, device=device,
+                                       q_init=Q_INIT_SORTING)
+        ctx = sorting.sample_context(gen, B, n)
+    sc = env.initial_scene(params, ctx)
+    if task == "aligning":
+        fp = sc.free_pos.clone()
+        fp[:, 0, 2] = scenes.TABLE_Z + 0.01 - 5e-4
+        sc = sc._replace(free_pos=fp)
+    return params, common.settle(params, sc, n=settle)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("task", ROD_SCENES)
+def test_contact_kernel_rod_scenes(cuda_device, task, B):
+    """K3's general variant on the aligning and sorting scenes (96 to 372
+    rows, 16 to 146 KB of shared memory per env), inputs from one substep
+    of a reset on the card, held to the plain version at the tolerance
+    above."""
+    params, sc = _rod_scene_state(task, B, cuda_device, settle=3)
+    st = params.statics
+    sb = substep_bm.scene_to_bm(sc)
+    arm = dyn_kernel.arm_stage_bm(st.arm, sb.q, sb.qd, sb.q[:7].contiguous(),
+                                  torch.zeros_like(sb.q[:7]),
+                                  torch.zeros_like(sb.q[:7]),
+                                  torch.full((B,), 0.04, device=cuda_device),
+                                  torch.zeros(B, dtype=torch.bool,
+                                              device=cuda_device))
+    args = substep_bm.contact_inputs(st, sb, arm)
+    tables = _hold_contact(st.meta, args, cuda_device)
+    assert tables.geometry.variant == 2
+    assert tables.geometry.smem_per_env == contact_kernel.smem_bytes(st.meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ("aligning", "sorting_2"))
+def test_arm_kernels_rod_scenes(cuda_device, task):
+    """K1 over a 4-substep window toward a setpoint 1 cm from the tcp, and
+    K2 on its first substep, from an aligning and a sorting state on the
+    card, B = 33, held to the plain versions at the tolerances above."""
+    B = 33
+    params, sc = _rod_scene_state(task, B, cuda_device, settle=2)
+    st = params.statics
+    tcp, _ = params.tcp_pose(sc)
+    bm = lambda x: torch.movedim(x, 0, -1).contiguous()
+    des = tcp + 0.01 * torch.tensor([1.0, -1.0, -1.0], device=cuda_device)
+    quat = torch.tensor([0.0, 1.0, 0.0, 0.0], device=cuda_device)
+    ins = (bm(sc.q[:, :7]), torch.zeros(7, B, device=cuda_device), bm(des),
+           bm(quat.expand(B, 4)))
+    n0 = dyn_kernel.ik_window_bm.launches
+    out = dyn_kernel.ik_window_bm(st.ik, 4, *ins)
+    ref = dyn_kernel.ik_window_plain(st.ik, 4, *ins)
+    torch.cuda.synchronize()
+    assert dyn_kernel.ik_window_bm.launches == n0 + 1
+    for a, b, tol in zip(out, ref, (3e-5, 3e-2, 3e-5, 3e-2, 2e-3)):
+        assert _scaled_err(a, b) <= tol
+    sb = substep_bm.scene_to_bm(sc)
+    k2_in = (sb.q, sb.qd, out[2][0], out[3][0], out[4][0],
+             torch.full((B,), 0.04, device=cuda_device))
+    gf = torch.zeros(B, dtype=torch.bool, device=cuda_device)
+    n0 = dyn_kernel.arm_stage_bm.launches
+    out2 = dyn_kernel.arm_stage_bm(st.arm, *k2_in, gf)
+    ref2 = dyn_kernel.arm_stage_plain(st.arm, *k2_in, gf.to(torch.float32))
+    torch.cuda.synchronize()
+    assert dyn_kernel.arm_stage_bm.launches == n0 + 1
+    for a, b, tol in zip(out2, ref2, (1e-5, 1e-5, 1e-5, 1e-5, 3e-4, 1e-3,
+                                      1e-3)):
+        assert _scaled_err(a, b) <= tol

@@ -97,6 +97,71 @@ def test_resume_dir_continues_training(small_task, tmp_path):
     assert row["final_train_loss"] == full["final_train_loss"]
 
 
+# the aligning and sorting tasks' start postures (the JAX package's
+# AligningParams.q_init and SortingParams.q_init)
+Q_INIT_TASK = {
+    "aligning": np.array([-0.40412223, 0.32504207, -0.20123088, -1.84203374,
+                          0.07952347, 2.16244817, 0.14624882]),
+    "sorting_4": np.array([-0.33100116, 0.24833255, -0.19925672, -1.95236027,
+                           0.06261307, 2.19832397, 0.22458877]),
+}
+
+
+def test_registry_lists_the_ported_tasks():
+    """Five tasks, with the JAX registry's dims, horizons and workloads; a
+    task that is not ported raises the KeyError that names the ported."""
+    assert sorted(registry.TASKS) == ["aligning", "pushing", "sorting_2",
+                                      "sorting_4", "sorting_6"]
+    dims = {k: (t.obs_dim, t.act_dim, t.max_steps, t.sim_name)
+            for k, t in registry.TASKS.items()}
+    assert dims == {"pushing": (10, 2, 400, "PushingSim"),
+                    "aligning": (20, 3, 400, "AligningSim"),
+                    "sorting_2": (10, 2, 700, "SortingSim"),
+                    "sorting_4": (16, 2, 700, "SortingSim"),
+                    "sorting_6": (22, 2, 700, "SortingSim")}
+    for n in (2, 4, 6):
+        spec = registry.TASKS[f"sorting_{n}"]
+        assert spec.params_kw == {"num_boxes": n}
+        assert spec.make_sim().num_boxes == n
+    for k in ("aligning", "sorting_2"):
+        assert registry.TASKS[k].train_kw == {"epochs": 100, "n_contexts": 60,
+                                              "n_trajs": 8}
+    with pytest.raises(KeyError, match="not ported.*'sorting_6'"):
+        registry.TASKS["stacking"]
+
+
+@pytest.mark.parametrize("task", ["aligning", "sorting_4"])
+def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
+    """run_train_torch trains a tiny gmm agent on the task's demonstrations
+    for one epoch, saves it and evaluates it through the task's Sim (2
+    contexts x 1 trajectory, 2 steps of a 2-substep window, full arm
+    dynamics, the given start posture); run_eval_torch reloads it and gives
+    the same metrics."""
+    spec = dataclasses.replace(
+        registry.TASKS[task],
+        params_kw=dict(registry.TASKS[task].params_kw, n_substeps=2,
+                       q_init=Q_INIT_TASK[task]))
+    monkeypatch.setitem(registry.TASKS, task, spec)
+    ckpt = str(tmp_path / f"{task}_gmm.pt")
+    args = run_train_torch.make_args(
+        task=task, agent="gmm", device="cpu", epochs=1, hidden=16, layers=2,
+        n_contexts=2, n_trajs=1, eval_max_steps=2, ckpt=ckpt,
+        data=os.path.join(ROOT, "data"))
+    row = run_train_torch.run_one(args)
+    assert row["task"] == task and row["eval_mode"] == "dynamic"
+    assert np.isfinite(row["final_train_loss"])
+    assert 0.0 <= row["success_rate"] <= 1.0
+    # sorting scores SR - KL against the demo prior, aligning reports the
+    # final distance to the target
+    assert ("kl" in row) == task.startswith("sorting")
+    assert ("mean_distance" in row) == (task == "aligning")
+    spec2, agent, meta = run_eval_torch.load_agent(ckpt, "cpu")
+    assert meta["task"] == task and spec2 is spec
+    out = run_train_torch.evaluate(spec2, agent, args)
+    for k in ("success_rate", "entropy", "score"):
+        assert out[k] == row[k]
+
+
 def test_cli_rejects_what_is_not_ported():
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--task",

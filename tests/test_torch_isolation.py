@@ -24,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(d3il_tpu_torch.__path__,
                                                "d3il_tpu_torch.")]
 for name in names + ["run_train_torch", "run_eval_torch"]:
     importlib.import_module(name)
-for want in ("data.scaler", "data.dataset", "agents.nets.mlp", "agents.bc",
+for want in ("envs.aligning", "envs.sorting", "data.scaler", "data.dataset",
+             "agents.nets.mlp", "agents.bc",
              "agents.gmm", "agents.base", "eval.metrics", "eval.contexts",
              "eval.rollout", "eval.sims", "registry", "convert"):
     assert "d3il_tpu_torch." + want in names, want

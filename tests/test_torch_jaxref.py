@@ -61,12 +61,38 @@ def contexts(seed, batch, red_xy=None):
     if red_xy is not None:
         red[:, :2] = red_xy
 
-    def yaw_quat(deg):
-        h = np.deg2rad(deg) / 2
-        return np.stack([np.cos(h), 0 * h, 0 * h, np.sin(h)], 1)
-
     return tuple(x.astype(np.float32) for x in (
-        red[:, :2], yaw_quat(red[:, 2]), green[:, :2], yaw_quat(green[:, 2])))
+        red[:, :2], _yaw_quat(red[:, 2]), green[:, :2], _yaw_quat(green[:, 2])))
+
+
+def _yaw_quat(deg):
+    h = np.deg2rad(deg) / 2
+    return np.stack([np.cos(h), 0 * h, 0 * h, np.sin(h)], -1)
+
+
+def aligning_contexts(seed, batch):
+    """Aligning contexts as NumPy (box_xy, box_quat, target_xy,
+    target_quat), drawn from the reference context spaces."""
+    rng = np.random.default_rng(seed)
+    box = rng.uniform([0.4, -0.25, -90.0], [0.6, -0.1, 90.0], (batch, 3))
+    tgt = rng.uniform([0.4, 0.2, -90.0], [0.6, 0.35, 90.0], (batch, 3))
+    return tuple(x.astype(np.float32) for x in (
+        box[:, :2], _yaw_quat(box[:, 2]), tgt[:, :2], _yaw_quat(tgt[:, 2])))
+
+
+def sorting_contexts(seed, batch, num_boxes):
+    """Sorting contexts as NumPy (xy [B, n, 2], quat [B, n, 4]): a point and
+    a yaw in each of the JAX package's 6 spawn regions, permuted per env,
+    the first n."""
+    from d3il_tpu.envs.sorting import CONTEXT_SPACES
+    rng = np.random.default_rng(seed)
+    lo, hi = CONTEXT_SPACES[:, :2], CONTEXT_SPACES[:, 2:]
+    xy = rng.uniform(lo, hi, (batch, 6, 2))
+    deg = rng.uniform(-90.0, 90.0, (batch, 6))
+    perm = np.stack([rng.permutation(6)[:num_boxes] for _ in range(batch)])
+    rows = np.arange(batch)[:, None]
+    return (xy[rows, perm].astype(np.float32),
+            _yaw_quat(deg[rows, perm]).astype(np.float32))
 
 
 def actions(tcp_xy, dxy=(0.0, 0.0)):
@@ -77,6 +103,66 @@ def actions(tcp_xy, dxy=(0.0, 0.0)):
                           axis=1).astype(np.float32)
 
 
+def xyz_actions(tcp, dxyz=(0.0, 0.0, 0.0)):
+    """[B, 7] setpoints: tcp xyz + offset, the rod pointing down."""
+    B = tcp.shape[0]
+    return np.concatenate([np.asarray(tcp) + np.asarray(dxyz),
+                           np.tile(HOLD_QUAT, (B, 1))],
+                          axis=1).astype(np.float32)
+
+
+def port_params(jparams, params_cls, **kw):
+    """The port's Params of a rod task at the JAX Params' start posture,
+    window, horizon and mode, on the CPU."""
+    from d3il_tpu_torch import convert
+    return convert.params_from_numpy(
+        jparams.q_init, params_cls, device="cpu",
+        n_substeps=jparams.n_substeps, max_steps=jparams.max_steps,
+        kinematic=jparams.kinematic, **kw)
+
+
+def check_start_pose(jparams, params):
+    """A rod task's start pose in the port is the JAX package's, and the
+    start-posture search's offline IK there, cut to 50 iterations as
+    tests/test_torch_pushing.py holds it at pushing's pose, agrees to
+    1e-5 rad."""
+    from d3il_tpu.control import offline_ik as joffline_ik
+    from d3il_tpu.robot import panda as jpanda
+    from d3il_tpu_torch.control import offline_ik
+    from d3il_tpu_torch.robot import panda
+    np.testing.assert_array_equal(params.init_ee_pos, jparams.init_ee_pos)
+    np.testing.assert_array_equal(params.init_ee_quat, jparams.init_ee_quat)
+    a = joffline_ik.solve(jparams.ctrl_chain, jparams.init_ee_pos,
+                          jparams.init_ee_quat, q0=jpanda.INIT_QPOS, it_max=50)
+    b = offline_ik.solve(params.ctrl_chain, params.init_ee_pos,
+                         params.init_ee_quat, q0=panda.INIT_QPOS, it_max=50)
+    np.testing.assert_allclose(b, a, atol=1e-5)
+
+
+def np_tree(x):
+    """A JAX pytree as NumPy arrays."""
+    import jax
+    return jax.tree_util.tree_map(np.asarray, x)
+
+
+def check_rod_state(js, ps, fields, when):
+    """A rod task's state, port (``convert.state_to_numpy``) against JAX:
+    the scene max-scaled to 3e-4 (tests/test_substep_bm.py:60-63), the
+    controller's q_virt 1e-4 and old_des_vel 2e-3 absolute, and ``fields``
+    of the task's own state exactly."""
+    for name in ("q", "qd", "free_pos", "free_quat", "free_linvel",
+                 "free_angvel", "warm"):
+        assert_scaled(ps["scene"][name], getattr(js.scene, name), 3e-4,
+                      f"{when} scene.{name}")
+    np.testing.assert_allclose(ps["ctrl"]["q_virt"], js.ctrl.q_virt,
+                               atol=1e-4, err_msg=f"{when} q_virt")
+    np.testing.assert_allclose(ps["ctrl"]["old_des_vel"], js.ctrl.old_des_vel,
+                               atol=2e-3, err_msg=f"{when} old_des_vel")
+    for name in fields:
+        np.testing.assert_array_equal(ps[name], getattr(js, name),
+                                      err_msg=f"{when} {name}")
+
+
 def jax_pushing_params(n_substeps, kinematic=False):
     from d3il_tpu.envs import pushing as jpushing
     return jpushing.PushingParams(n_substeps=n_substeps, max_steps=50,
@@ -84,12 +170,8 @@ def jax_pushing_params(n_substeps, kinematic=False):
 
 
 def port_pushing_params(jparams):
-    from d3il_tpu_torch import convert
-    return convert.params_from_numpy(jparams.q_init,
-                                     n_substeps=jparams.n_substeps,
-                                     max_steps=jparams.max_steps,
-                                     kinematic=jparams.kinematic,
-                                     device="cpu")
+    from d3il_tpu_torch.envs import pushing
+    return port_params(jparams, pushing.PushingParams)
 
 
 def tiny_agents(name, obs_dim=10, act_dim=2, hidden=16, layers=2, seed=0,

@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_jaxref import (HOLD_QUAT, actions, assert_scaled, contexts,
-                               jax_pushing_params, port_pushing_params,
-                               tiny_agents)
+from test_torch_jaxref import (HOLD_QUAT, actions, assert_scaled,
+                               check_rod_state, contexts, jax_pushing_params,
+                               np_tree, port_pushing_params, tiny_agents)
 
 from d3il_tpu.control import offline_ik as joffline_ik
 from d3il_tpu.envs import pushing as jpushing
@@ -36,10 +36,6 @@ from d3il_tpu_torch.robot import panda
 B = 4
 SCENE_FIELDS = ("q", "qd", "free_pos", "free_quat", "free_linvel",
                 "free_angvel", "warm")
-
-
-def _np_tree(x):
-    return jax.tree_util.tree_map(np.asarray, x)
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +67,7 @@ def _run_episode(jparams, params):
     jstate = jax.jit(jax.vmap(lambda c: jpushing.reset(jparams, c)))(
         tuple(jnp.asarray(c) for c in ctx))
     state = pushing.reset(params, tuple(torch.from_numpy(c) for c in ctx))
-    out = [(_np_tree(jstate), convert.pushing_state_to_numpy(state), None,
+    out = [(np_tree(jstate), convert.state_to_numpy(state), None,
             None)]
     jstep = jax.jit(jax.vmap(lambda s, a: jpushing.step(jparams, s, a)))
     tcp = np.asarray(jax.vmap(lambda s: jparams.tcp_pose(s)[0])(
@@ -81,23 +77,14 @@ def _run_episode(jparams, params):
     for acts in (actions(tcp), actions(tcp, push)):
         jstate, jres = jstep(jstate, jnp.asarray(acts))
         state, res = pushing.step(params, state, torch.from_numpy(acts))
-        out.append((_np_tree(jstate), convert.pushing_state_to_numpy(state),
-                    _np_tree(jres), res))
+        out.append((np_tree(jstate), convert.state_to_numpy(state),
+                    np_tree(jres), res))
     return out
 
 
 def _check_state(js, ps, when):
-    for name in SCENE_FIELDS:
-        # test_substep_bm.py:60-63: max-scaled absolute 3e-4
-        assert_scaled(ps["scene"][name], getattr(js.scene, name), 3e-4,
-                      f"{when} scene.{name}")
-    np.testing.assert_allclose(ps["ctrl"]["q_virt"], js.ctrl.q_virt,
-                               atol=1e-4, err_msg=f"{when} q_virt")
-    np.testing.assert_allclose(ps["ctrl"]["old_des_vel"], js.ctrl.old_des_vel,
-                               atol=2e-3, err_msg=f"{when} old_des_vel")
-    for name in ("t", "terminated", "first_visit", "mode", "success"):
-        np.testing.assert_array_equal(ps[name], getattr(js, name),
-                                      err_msg=f"{when} {name}")
+    check_rod_state(js, ps, ("t", "terminated", "first_visit", "mode",
+                             "success"), when)
 
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["reset", "step1", "step2"])
@@ -159,8 +146,8 @@ def test_contact_active_in_episode(episode):
 
 def test_state_round_trips_through_numpy(episode):
     _, ps, _, _ = episode[2]
-    state = convert.pushing_state_from_numpy(ps, device="cpu")
-    back = convert.pushing_state_to_numpy(state)
+    state = convert.state_from_numpy(ps, pushing.PushingState, device="cpu")
+    back = convert.state_to_numpy(state)
     for name in SCENE_FIELDS:
         np.testing.assert_array_equal(back["scene"][name], ps["scene"][name])
     np.testing.assert_array_equal(back["first_visit"], ps["first_visit"])
@@ -234,9 +221,9 @@ def test_bc_rollout_through_pushing_sim_matches(kin_pair, monkeypatch):
     jsim = jsims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
     sim = sims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
 
-    jstate = _np_tree(_jax_sim_final_state(jsim, jagent, jparams))
+    jstate = np_tree(_jax_sim_final_state(jsim, jagent, jparams))
     state, dones = sim.run_episodes(agent, params)
-    ps = convert.pushing_state_to_numpy(state)
+    ps = convert.state_to_numpy(state)
     for name in SCENE_FIELDS:
         assert_scaled(ps["scene"][name], getattr(jstate.scene, name), 3e-4,
                       f"final scene.{name}")
@@ -282,7 +269,7 @@ def test_rollout_freezes_every_leaf_of_finished_episodes(kin_pair,
         state, _ = run(agent.params, agent.init_carry(10, 4),
                        tuple(torch.from_numpy(c)[cidx] for c in ctxs),
                        on_step=watch if T == 3 else None)
-        finals.append(convert.pushing_state_to_numpy(state))
+        finals.append(convert.state_to_numpy(state))
     a, b = finals
     for name in SCENE_FIELDS:
         np.testing.assert_array_equal(a["scene"][name][2:],
