@@ -49,26 +49,42 @@ Phases (each fatal on failure):
      clip, the metrics' range, the launch counts and that a bc rollout
      repeats exactly; print success rate, entropy, score, seconds and
      episode-steps/s;
-  5. the rod tasks: aligning and sorting with 2, 4 and 6 boxes, each with
-     its Params() at full width (35 substeps, the scene's solver
-     iterations, full arm dynamics); its 480-episode evaluation batch (60
-     contexts x 8; aligning's shipped contexts) from the reset's initial
-     scene through ROD_CHECK_SUBSTEPS hold substeps, then K3's general
-     variant held against its plain version on the next substep's inputs
-     (K2 too, on aligning and sorting_2: one per start pose), K3 timed
-     there with its bound and roofline share; a gmm agent trained on the
-     card on data/<task> (epochs cut to ROD_EPOCHS) and rolled out through
-     the task's Sim in both modes at a cut horizon (its steps timed apart
-     from the reset); checks of finiteness, the frozen episodes, the setpoint clip, the metrics' range, the launch
-     counts (K1 = steps, K2 and K3 = 35 x steps + the reset's hold
-     substeps, no K2 in kinematic mode) and, on aligning and sorting_2, a
-     bc rollout that repeats exactly; prints episode-steps/s and one
-     profiled dynamic step per task (device busy share, launches per
-     substep);
-  6. print the ``kernels`` JSON line (with ``design``, the PR whose design
+  5. the rod tasks: avoiding, aligning and sorting with 2, 4 and 6 boxes,
+     each with its Params() at full width (35 substeps, the scene's solver
+     iterations, full arm dynamics); its 480-episode evaluation batch
+     (avoiding: 1 x 480 from its one empty context, its arms then set into
+     the first obstacle; the others 60 contexts x 8 from the reset's
+     initial scene through ROD_CHECK_SUBSTEPS hold substeps, aligning on
+     its shipped contexts), then K3 held against its plain version on the
+     next substep's inputs (avoiding: the register variant with no free
+     body, nf = 0; the others: the general variant), K2 too on avoiding,
+     aligning and sorting_2 (one per start pose), K3 timed there with its
+     bound and roofline share; on avoiding, a failure unless the rod's row
+     against the first obstacle carries force in 99 % of the envs; a gmm agent trained on the card on
+     data/<task> (epochs cut to ROD_EPOCHS) and rolled out through the
+     task's Sim in both modes at a cut horizon (its steps timed apart from
+     the reset); checks of finiteness, the frozen episodes, the setpoint
+     clip, the metrics' range, the launch counts (K1 = steps, K2 and K3 =
+     35 x steps + the reset's hold substeps, no K2 in kinematic mode) and,
+     on aligning and sorting_2, a bc rollout that repeats exactly; prints
+     episode-steps/s and one profiled dynamic step per task (device busy
+     share, launches per substep);
+  6. stacking: StackingParams() at full width (30 substeps, 40 solver
+     iterations, the gripper chain), its 1,080-episode batch (60 shipped
+     contexts x 18) reset with each red box then pressed by a finger's tip
+     pad, K2 held with the grasp law on (width 0, grasp flag set) and K3's
+     general variant held and timed on the first substep of a joint-window
+     hold, a failure unless a finger-box row carries force in 99 % of the
+     envs; a gmm agent trained at window 5 (epochs cut to STACK_EPOCHS) and
+     rolled out through StackingSim's joint-space rollout in both modes at
+     a cut horizon; the checks of phase 5 but the setpoint clip (the joint
+     rollout has none), the KL beside success and entropy, launch counts
+     K1 = 0, K2 and K3 = 30 x steps + 5 (the reset's joint substeps), no K2
+     in kinematic mode; one profiled dynamic step;
+  7. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
-     and one row of K3's general variant per rod scene), the card line,
-     and last {"ok": true, "device": {...}}.
+     and one K3 row per scene of phases 5 and 6), the card line, and last
+     {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -85,8 +101,10 @@ EVAL_CONTEXTS, EVAL_TRAJS = 30, 16      # the reference workload: 480 episodes
 EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 40, 10    # of the task's 400
 REPEAT_STEPS = 5                        # bc determinism rollouts (kinematic)
 ROLLOUT_CHECK_STEPS = 6     # push steps before the B = 480 substep checks
-ROD_TASKS = ("aligning", "sorting_2", "sorting_4", "sorting_6")
-ROD_CONTEXTS, ROD_TRAJS = 60, 8         # their reference workload: 480 episodes
+ROD_TASKS = ("avoiding", "aligning", "sorting_2", "sorting_4", "sorting_6")
+# their reference workloads, contexts x trajectories: 480 episodes each
+ROD_WORKLOADS = {"avoiding": (1, 480)}  # no context: one empty context
+ROD_CONTEXTS, ROD_TRAJS = 60, 8         # the others
 ROD_EPOCHS = 5                          # of the registry's 100
 ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 4, 2   # of 400 (aligning), 700
 # hold substeps from a reset's initial scene before the B = 480 substep
@@ -96,9 +114,13 @@ ROD_CHECK_SUBSTEPS = {"aligning": 50, "sorting_2": 3, "sorting_4": 3,
                       "sorting_6": 3}
 ROD_REPEAT_TASKS = ("aligning", "sorting_2")   # bc determinism rollouts
 # K2 is held once per distinct arm state: the arm sees no box, so the
-# sorting scenes start it alike and only the start pose tells them apart
-ROD_K2_TASKS = ("aligning", "sorting_2")
+# sorting scenes start it alike and only the start pose tells them apart;
+# avoiding's arms are set into the obstacle
+ROD_K2_TASKS = ("avoiding", "aligning", "sorting_2")
 ROD_REPEAT_STEPS = 1
+STACK_CONTEXTS, STACK_TRAJS = 60, 18    # stacking's reference workload: 1,080
+STACK_EPOCHS = 5                        # of the registry's 100
+STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 4, 2   # of 1,000
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -333,8 +355,9 @@ def leaves(tree):
 
 class Watch:
     """Per-step observer of a rollout, free of host syncs: the largest
-    per-axis move of the xy setpoint between steps, and whether every state
-    leaf stayed finite."""
+    per-axis move of the setpoint between steps (the xy or xyz setpoint;
+    stacking's joint setpoint and width), and whether every state leaf
+    stayed finite."""
 
     def __init__(self, device):
         import torch
@@ -344,7 +367,7 @@ class Watch:
 
     def __call__(self, carry):
         import torch
-        state, _, pos, obs, _, _ = carry
+        state, _, pos, obs = carry[:4]
         if self.prev is not None:
             self.max_delta = torch.maximum(self.max_delta,
                                            (pos - self.prev).abs().max())
@@ -756,26 +779,82 @@ def rod_hold_action(tcp):
     return torch.cat([tcp, down.expand(tcp.shape[0], 4)], dim=1)
 
 
-def rod_substep_kernels(spec, params, tols):
-    """K2 and K3 on one real substep of a rod task's evaluation batch: the
-    task's Sim's 60 x 8 episodes (B = 480) start from their reset's initial
-    scene, held for ROD_CHECK_SUBSTEPS substeps, and the window of a hold
-    at the tcp (K1) and its first substep are formed as run_substeps_bm
-    forms them, through the wrappers. Returns the records for hold_kernel:
-    K3 (timed; its general variant on every rod scene) and K2."""
+def rod_workload(task):
+    """(contexts, trajectories) of a rod task's evaluation batch."""
+    return ROD_WORKLOADS.get(task, (ROD_CONTEXTS, ROD_TRAJS))
+
+
+def avoiding_contact_posture(params):
+    """Arm joints (NumPy [7]) whose rod sits ~5 mm inside avoiding's first
+    obstacle, from below: offline IK of a tcp 35 mm short of its axis in y
+    (the IK lands ~3 mm short of its target, hence the 32 mm). The CPU and
+    CUDA tests of avoiding's contacts take their posture from here too."""
+    import numpy as np
+    from d3il_tpu_torch.control import offline_ik
+    from d3il_tpu_torch.envs import scenes
+    tgt = np.array([scenes.AVOIDING_L1_X, scenes.AVOIDING_L1_Y - 0.032, 0.12])
+    return offline_ik.solve(params.ctrl_chain, tgt, params.init_ee_quat,
+                            q0=params.q_init)
+
+
+def box_between_fingers(params, sc):
+    """[B, 3]: where an axis-aligned stacking box (3 cm half-width) sits
+    between each env's open fingers at the tip pads' height, its face 1 mm
+    into the first tip pad (the port's FK of ``sc``). The CPU and CUDA
+    tests of stacking's finger contacts place their box from here too."""
+    from d3il_tpu_torch.engine import step as estep
+    from d3il_tpu_torch.envs import stacking
+    from d3il_tpu_torch.robot import chain as chain_mod
+    xpos, xquat = chain_mod.fk(params.scene.robot, sc.q)
+    tips = [estep._geom_world_pose(g, xpos, xquat, sc.free_pos,
+                                   sc.free_quat)[0]
+            for g in stacking.gripper_finger_geoms(params.scene.robot)[::2]]
+    u = tips[1] - tips[0]
+    return tips[0] + u / u.norm(dim=1, keepdim=True) * (0.004 + 0.03 - 1e-3)
+
+
+def rod_check_scene(spec, params):
+    """The scene of a rod task's evaluation batch (its Sim's contexts x
+    trajectories, B = 480) on which K2 and K3 are held, and what it is.
+    Aligning and sorting: the reset's initial scene through
+    ROD_CHECK_SUBSTEPS hold substeps, while the contacts carry force.
+    Avoiding (no context, no free body): the reset, then each arm at a
+    seeded perturbation (1e-3 rad) of a posture whose rod sits ~5 mm inside
+    the first obstacle (offline IK of a tcp 35 mm short of its axis)."""
     import torch
-    from d3il_tpu_torch.control import cartesian
-    from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
-                                       substep_bm)
     from d3il_tpu_torch.envs import common
     from d3il_tpu_torch.eval import sims
-    env, st, n_sub = spec.env(), params.statics, params.n_substeps
-    sim = spec.make_sim(n_contexts=ROD_CONTEXTS,
-                        n_trajectories_per_context=ROD_TRAJS)
-    cidx, _ = sims._grid(ROD_CONTEXTS, ROD_TRAJS, 0, params.device)
-    held = ROD_CHECK_SUBSTEPS[spec.name]
-    sc = common.settle(params, env.initial_scene(
-        params, tuple(x[cidx] for x in sim.contexts(params))), n=held)
+    env = spec.env()
+    C, T = rod_workload(spec.name)
+    sim = spec.make_sim(n_contexts=C, n_trajectories_per_context=T)
+    cidx, _ = sims._grid(C, T, 0, params.device)
+    ctx = tuple(x[cidx] for x in sim.contexts(params))
+    if spec.name != "avoiding":
+        held = ROD_CHECK_SUBSTEPS[spec.name]
+        return (common.settle(params, env.initial_scene(params, ctx), n=held),
+                f"after {held} hold substeps from the reset's initial scene")
+    sc = env.reset(params, ctx).scene
+    qc = avoiding_contact_posture(params)
+    gen = torch.Generator(device=params.device).manual_seed(12)
+    q = sc.q.clone()
+    q[:, :7] = torch.as_tensor(qc, dtype=torch.float32, device=params.device) \
+        + 1e-3 * torch.randn((q.shape[0], 7), generator=gen,
+                             device=params.device)
+    return (sc._replace(q=q), "after the reset, the arms at postures whose "
+            "rod sits ~5 mm inside the first obstacle")
+
+
+def rod_substep_kernels(spec, params, tols):
+    """K2 and K3 on one real substep of a rod task's evaluation batch: on
+    ``rod_check_scene``'s scene, the window of a hold at the tcp (K1) and
+    its first substep are formed as run_substeps_bm forms them, through the
+    wrappers. Returns the records for hold_kernel: K3 (timed; its register
+    variant on avoiding, its general variant on the other scenes) and K2."""
+    import torch
+    from d3il_tpu_torch.control import cartesian
+    from d3il_tpu_torch.engine import dyn_kernel, substep_bm
+    st, n_sub = params.statics, params.n_substeps
+    sc, what = rod_check_scene(spec, params)
     cs = cartesian.init_state(sc.q[:, :7].clone())
     tcp, _ = params.tcp_pose(sc)
     hold = rod_hold_action(tcp)
@@ -788,16 +867,31 @@ def rod_substep_kernels(spec, params, tols):
     sw = torch.full((n,), 0.04, device=params.device)
     gf = torch.zeros(n, dtype=torch.bool, device=params.device)
     k2_in = (sb.q, sb.qd, k1_out[2][0], k1_out[3][0], k1_out[4][0], sw, gf)
+    return contact_records(spec, params, sb, k2_in, what, tols)
+
+
+def contact_records(spec, params, sb, k2_in, what, tols):
+    """K2 on ``k2_in`` and K3 on the contact inputs that follow from it and
+    the batch-minor scene ``sb``, through the wrappers; logs the contacts
+    that carry force. Returns the records for hold_kernel: K3 (timed) and
+    K2."""
+    import torch
+    from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
+                                       substep_bm)
+    st = params.statics
     arm_out = dyn_kernel.arm_stage_bm(st.arm, *k2_in)
     k3_in = substep_bm.contact_inputs(st, sb, arm_out)
     k3_out = contact_kernel.phase_batched_bm(st.contact, *k3_in)
+    n = sb.q.shape[-1]
     active = (k3_in[2] > 0).float().sum(0).mean().item()
     loaded = (k3_out[0].abs().amax(dim=1) > 0).float().sum(0).mean().item()
-    log(f"{spec.name} substep (B = {n}, after {held} hold substeps from "
-        f"the reset's initial scene): {active:.1f} of {st.meta.ncon} "
-        f"contacts with depth > 0 per env, {loaded:.1f} carrying force")
-    k3 = dict(name=f"contact_phase_general_{spec.name}", key="K3",
-              route="cuda", design="general variant, first design",
+    log(f"{spec.name} substep (B = {n}, {what}): {active:.1f} of "
+        f"{st.meta.ncon} contacts with depth > 0 per env, {loaded:.1f} "
+        f"carrying force")
+    variant = "register" if st.contact.geometry.variant == 1 else "general"
+    k3 = dict(name=f"contact_phase_{variant}_{spec.name}", key="K3",
+              route="cuda", design=f"{variant} variant, "
+              + ("second design" if variant == "register" else "first design"),
               source="d3il_tpu_torch/csrc/contact_kernel.cu",
               replaces="d3il_tpu/engine/contact_kernel.py:345",
               out=k3_out, ins=k3_in, reps=(10, 3),
@@ -812,18 +906,16 @@ def rod_substep_kernels(spec, params, tols):
     return k3, k2
 
 
-def profile_rod_step(spec, params, state, card, top=False):
-    """One dynamic env step of a rod task at its batch under
-    torch.profiler: wall time, device busy share and device launches per
-    substep (each of the window's substeps, K1 and the step's glue spread
-    over them). The trace's raw events are read, not the profiler's
-    FunctionEvents, which it builds in Python for each of up to a quarter
-    of a million events."""
+def profile_rod_step(spec, params, state, hold, card, top=False):
+    """One dynamic env step of a task at its batch under torch.profiler,
+    toward the action ``hold``: wall time, device busy share and device
+    launches per substep (each of the window's substeps, K1 where the step
+    has it, and the step's glue spread over them). The trace's raw events
+    are read, not the profiler's FunctionEvents, which it builds in Python
+    for each of up to a quarter of a million events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    tcp, _ = params.tcp_pose(state.scene)
-    hold = rod_hold_action(tcp)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -849,19 +941,21 @@ def profile_rod_step(spec, params, state, card, top=False):
 
 
 def rod_tasks(counters, tols, card):
-    """Phase 5: aligning and sorting with 2, 4 and 6 boxes, each through
-    its Params() at full width, K3's general variant held on a real
-    substep of its evaluation batch, a gmm agent trained on its demos and
-    its Sim's rollout of 60 x 8 episodes in both modes. Returns the K3
-    records for the kernels line."""
+    """Phase 5: avoiding, aligning and sorting with 2, 4 and 6 boxes, each
+    through its Params() at full width, K3 held on a real substep of its
+    evaluation batch (avoiding: the register variant with no free body;
+    the others: the general variant), a gmm agent trained on its demos and
+    its Sim's rollout of 480 episodes (avoiding 1 x 480, the others 60 x 8)
+    in both modes. Returns the K3 records for the kernels line."""
     import torch
     import run_eval_torch
     import run_train_torch
     from d3il_tpu_torch import registry
     rows, failed, problems = [], [], []
-    n_eps = ROD_CONTEXTS * ROD_TRAJS
     for task in ROD_TASKS:
         spec = registry.TASKS[task]
+        workload = rod_workload(task)
+        n_eps = workload[0] * workload[1]
         t0 = t_task = time.perf_counter()
         params = spec.make_params(device="cuda")
         torch.cuda.synchronize()
@@ -874,8 +968,16 @@ def rod_tasks(counters, tols, card):
         if task in ROD_K2_TASKS:
             hold_kernel(k2, card, failed, timed=False)
         hold_kernel(k3, card, failed)
-        log(f"{task} K3 general variant at B = {n_eps}: roofline share "
+        log(f"{task} K3 ({k3['name']}) at B = {n_eps}: roofline share "
             f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
+        if task == "avoiding":
+            rod = loaded_share(k3["out"][0], pair_rows(
+                params.scene, lambda p: p.geom_b.name == "l1_obs"))
+            log(f"avoiding: the rod-obstacle row carries force in "
+                f"{rod:.1%} of envs")
+            if rod < 0.99:
+                problems.append(f"avoiding: the rod-obstacle row carries "
+                                f"force in only {rod:.1%} of envs")
         ckpt = os.path.join(ROOT, "build", "chip_smoke", f"{task}_gmm.pt")
         targs = run_train_torch.make_args(
             task=task, agent="gmm", device="cuda", skip_eval=True, ckpt=ckpt,
@@ -890,7 +992,7 @@ def rod_tasks(counters, tols, card):
                              ("kinematic", True, ROD_STEPS_KINEMATIC)):
             state, dones, out, ln, secs, reset_s, w = eval_rollout(
                 spec, agent, params.q_init, kin, T, counters, card,
-                workload=(ROD_CONTEXTS, ROD_TRAJS))
+                workload=workload)
             k3["launches_eval_" + mode] = ln["K3"]
             want = {"K1": T, "K2": 0 if kin else T * n_sub + settle,
                     "K3": T * n_sub + settle, "K4": 0}
@@ -914,17 +1016,18 @@ def rod_tasks(counters, tols, card):
             if w.max_delta.item() > 0.01 + 1e-6:
                 bad.append(f"setpoint moved {w.max_delta.item()} m in a step")
             in01 = ("success_rate", "entropy") + (
-                ("score",) if task == "aligning" else ())
+                () if task.startswith("sorting") else ("score",))
             if not all(0.0 <= out[k] <= 1.0 for k in in01):
                 bad.append(f"metrics out of [0, 1]: {out}")
-            if task != "aligning" and not out["kl"] >= -1e-6:
+            if "kl" in out and not out["kl"] >= -1e-6:
                 bad.append(f"negative KL: {out}")
             if ln != want:
                 bad.append(f"launch counts {ln} != {want}")
             problems += [f"{task} ({mode}): {b}" for b in bad]
             if mode == "dynamic":
-                profile_rod_step(spec, params, state, card,
-                                 top=task == ROD_TASKS[-1])
+                tcp, _ = params.tcp_pose(state.scene)
+                profile_rod_step(spec, params, state, rod_hold_action(tcp),
+                                 card, top=task == ROD_TASKS[-1])
         rows.append(k3)
         log(f"{task}: {time.perf_counter() - t_task:.1f} s in all")
         if task not in ROD_REPEAT_TASKS:
@@ -934,8 +1037,7 @@ def rod_tasks(counters, tols, card):
             spec.act_dim, agent.scaler)
         finals = [eval_rollout(spec, bc, params.q_init, True,
                                ROD_REPEAT_STEPS, counters, card, seed=5,
-                               watch=False,
-                               workload=(ROD_CONTEXTS, ROD_TRAJS))[0]
+                               watch=False, workload=workload)[0]
                   for _ in range(2)]
         same = all(torch.equal(a, b) for a, b in zip(leaves(finals[0]),
                                                      leaves(finals[1])))
@@ -950,6 +1052,148 @@ def rod_tasks(counters, tols, card):
     if problems:
         raise SystemExit("rod tasks failed: " + "; ".join(problems))
     return rows
+
+
+def stacking_check_scene(params, env):
+    """Stacking's evaluation batch reset on its shipped contexts (60 x 18,
+    B = 1,080), each env's red box then moved between the open fingers, 1
+    mm into the first tip pad: the green and blue boxes on the table, a
+    finger pressing a box. Returns the scene."""
+    import torch
+    from d3il_tpu_torch.eval import sims
+    sim = sims.StackingSim(n_contexts=STACK_CONTEXTS,
+                           n_trajectories_per_context=STACK_TRAJS)
+    cidx, _ = sims._grid(STACK_CONTEXTS, STACK_TRAJS, 0, params.device)
+    sc = env.reset(params, tuple(x[cidx] for x in sim.contexts(params))).scene
+    fp, fq = sc.free_pos.clone(), sc.free_quat.clone()
+    fp[:, 0] = box_between_fingers(params, sc)
+    fq[:, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=params.device)
+    return sc._replace(free_pos=fp, free_quat=fq)
+
+
+def pair_rows(scene, pick):
+    """Indices of the contacts of the scene's pairs for which ``pick(pair)``
+    holds."""
+    rows, r = [], 0
+    for pair in scene.pairs:
+        if pick(pair):
+            rows += range(r, r + pair.max_points)
+        r += pair.max_points
+    return rows
+
+
+def is_finger_box(pair):
+    """A stacking pair of a finger geom (on the chain) and a box."""
+    a, b = pair.geom_a, pair.geom_b
+    return a.body >= 0 and a.free_idx < 0 and b.free_idx >= 0
+
+
+def loaded_share(f, rows):
+    """Share of envs in which one of the contacts ``rows`` of K3's forces
+    ``f`` [ncon, 3, B] carries more than 1e-3 N: a hold on rows without
+    force would compare zeros."""
+    return (f[rows].abs().amax(dim=(0, 1)) > 1e-3).float().mean().item()
+
+
+def stacking_task(counters, tols, card):
+    """Phase 6: stacking through StackingParams() at full width (30
+    substeps, 40 solver iterations, the gripper chain), K2 (the grasp law
+    on: width 0, grasp flag set) and K3's general variant held on the first
+    substep of a joint-window hold of its 1,080-episode batch with a finger
+    pressing a box, a gmm agent trained on data/stacking at window 5, and
+    its Sim's joint-space rollout of 60 x 18 episodes in both modes.
+    Returns the K3 record for the kernels line."""
+    import torch
+    import run_eval_torch
+    import run_train_torch
+    from d3il_tpu_torch import registry
+    from d3il_tpu_torch.engine import substep_bm
+    spec = registry.TASKS["stacking"]
+    env = spec.env()
+    failed, problems = [], []
+    n_eps = STACK_CONTEXTS * STACK_TRAJS
+    t0 = time.perf_counter()
+    params = spec.make_params(device="cuda")
+    torch.cuda.synchronize()
+    meta, n_sub = params.statics.meta, params.n_substeps
+    log(f"stacking: params {time.perf_counter() - t0:.1f} s; "
+        f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
+        f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
+        f"iterations, {params.scene.robot.nb} bodies in the chain; K3 "
+        f"{params.statics.contact.geometry}")
+    sc = stacking_check_scene(params, env)
+    sb = substep_bm.scene_to_bm(sc)
+    zeros = torch.zeros_like(sb.q[:7])
+    k2_in = (sb.q, sb.qd, sb.q[:7].contiguous(), zeros, zeros,
+             torch.zeros(n_eps, device=params.device),
+             torch.ones(n_eps, dtype=torch.bool, device=params.device))
+    k3, k2 = contact_records(
+        spec, params, sb, k2_in, "after the reset, the red box pressed by "
+        "a finger's tip pad; the gripper closing under the grasp force",
+        tols)
+    hold_kernel(k2, card, failed, timed=False)
+    hold_kernel(k3, card, failed)
+    f, qfrc = k3["out"]
+    fingers = loaded_share(f, pair_rows(params.scene, is_finger_box))
+    log(f"stacking: a finger-box row carries force in {fingers:.1%} of "
+        f"envs; max |J' f| on the finger slide joints "
+        f"{qfrc[7:9].abs().max().item():.3f}; K3 roofline share "
+        f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
+    if failed:
+        raise SystemExit(f"stacking: kernels disagree with their plain "
+                         f"versions: {failed}")
+    if fingers < 0.99:
+        problems.append(f"finger rows carry force in only {fingers:.1%}")
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "stacking_gmm.pt")
+    targs = run_train_torch.make_args(
+        task="stacking", agent="gmm", device="cuda", skip_eval=True,
+        ckpt=ckpt, epochs=STACK_EPOCHS, data=os.path.join(ROOT, "data"))
+    row = run_train_torch.run_one(targs)
+    log(f"stacking: trained gmm (window {targs.window}) for {targs.epochs} "
+        f"epochs (cut from {spec.train_kw['epochs']}) in "
+        f"{row['train_seconds']} s, final train loss "
+        f"{row['final_train_loss']} [{card}]")
+    _, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
+    for mode, kin, T in (("dynamic", False, STACK_STEPS_DYNAMIC),
+                         ("kinematic", True, STACK_STEPS_KINEMATIC)):
+        state, dones, out, ln, secs, reset_s, w = eval_rollout(
+            spec, agent, params.q_init, kin, T, counters, card,
+            workload=(STACK_CONTEXTS, STACK_TRAJS))
+        k3["launches_eval_" + mode] = ln["K3"]
+        settle = env.SETTLE_SUBSTEPS
+        want = {"K1": 0, "K2": 0 if kin else T * n_sub + settle,
+                "K3": T * n_sub + settle, "K4": 0}
+        finite = bool(w.finite.item()) and all(
+            torch.isfinite(x).all().item() for x in leaves(state)
+            if x.is_floating_point())
+        frozen = bool((dones[1:] | ~dones[:-1]).all().item())
+        log(f"stacking ({mode}): {n_eps} episodes x {T} steps (horizon cut "
+            f"from {spec.max_steps}) in {secs:.2f} s = "
+            f"{n_eps * T / secs:.1f} episode-steps/s, after a reset of "
+            f"{reset_s:.2f} s ({settle} joint substeps); "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+            + f"; max joint setpoint move per step {w.max_delta.item():.4f};"
+            f" all finite: {finite}; launches {ln} expected {want} [{card}]")
+        bad = []
+        if not finite:
+            bad.append("non-finite state")
+        if not frozen:
+            bad.append("done went back to false")
+        in01 = ("success_rate", "success_rate_1", "success_rate_2",
+                "entropy_1", "entropy_2", "entropy_3")
+        if not all(0.0 <= out[k] <= 1.0 + 1e-6 for k in in01):
+            bad.append(f"metrics out of [0, 1]: {out}")
+        if not all(out[k] >= -1e-6 for k in ("kl_1", "kl_2", "kl_3")):
+            bad.append(f"negative KL: {out}")
+        if ln != want:
+            bad.append(f"launch counts {ln} != {want}")
+        problems += [f"stacking ({mode}): {b}" for b in bad]
+        if mode == "dynamic":
+            profile_rod_step(spec, params, state,
+                             env.robot_state(params, state), card)
+    if problems:
+        raise SystemExit("stacking failed: " + "; ".join(problems))
+    return k3
 
 
 def main(kernels_only=False):
@@ -1227,8 +1471,12 @@ def main(kernels_only=False):
     log(f"phase 5: {since()}")
     rod_rows = rod_tasks(counters, tols, card)
 
-    # ---- phase 6: report --------------------------------------------------
+    # ---- phase 6: stacking ------------------------------------------------
     log(f"phase 6: {since()}")
+    rod_rows.append(stacking_task(counters, tols, card))
+
+    # ---- phase 7: report --------------------------------------------------
+    log(f"phase 7: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row

@@ -1,7 +1,8 @@
 """Carry parameters, weights and state across from the JAX package as NumPy.
 
-A rod task's state in the JAX package (``PushingState``, ``AligningState``,
-``SortingState``) is a pytree of NamedTuples; passed through ``numpy``
+A task's state in the JAX package (``AvoidingState``, ``PushingState``,
+``AligningState``, ``SortingState``, ``StackingState``) is a pytree of
+NamedTuples; passed through ``numpy``
 (e.g. ``jax.tree_util.tree_map(np.asarray, state)``) it has the same fields
 as the port's state of that name. These helpers take and
 give nested mappings or NamedTuples of NumPy arrays, batch first, and never
@@ -32,36 +33,42 @@ def _tensor(x, device):
     return torch.as_tensor(x.astype(np.float32), device=device)
 
 
+# a task state's sub-structures: field name -> NamedTuple
+_SUBSTATES = {"scene": SceneState, "ctrl": CartImpedanceState}
+
+
 def state_from_numpy(state, state_cls=pushing.PushingState, device=None):
-    """A batched rod-task state (mapping or NamedTuple of NumPy arrays with
-    ``scene`` and ``ctrl`` sub-structures, e.g. the JAX package's
-    ``AligningState`` passed through ``numpy``) -> the port's ``state_cls``
-    (``PushingState``, ``AligningState``, ``SortingState``)."""
+    """A batched task state (mapping or NamedTuple of NumPy arrays with a
+    ``scene`` and, but for stacking, a ``ctrl`` sub-structure, e.g. the JAX
+    package's ``AligningState`` passed through ``numpy``) -> the port's
+    ``state_cls`` (``AvoidingState``, ``PushingState``, ``AligningState``,
+    ``SortingState``, ``StackingState``). A scene without free bodies
+    (avoiding) has free-body arrays of length 0."""
     dev = common.resolve_device(device)
-    sc, cs = _get(state, "scene"), _get(state, "ctrl")
-    return state_cls(
-        scene=SceneState(*(_tensor(_get(sc, f), dev)
-                           for f in SceneState._fields)),
-        ctrl=CartImpedanceState(*(_tensor(_get(cs, f), dev)
-                                  for f in CartImpedanceState._fields)),
-        **{f: _tensor(_get(state, f), dev)
-           for f in state_cls._fields if f not in ("scene", "ctrl")})
+
+    def field(f):
+        x = _get(state, f)
+        sub = _SUBSTATES.get(f)
+        if sub is None:
+            return _tensor(x, dev)
+        return sub(*(_tensor(_get(x, g), dev) for g in sub._fields))
+
+    return state_cls(**{f: field(f) for f in state_cls._fields})
 
 
 def state_to_numpy(state) -> dict:
-    """A rod-task state of the port -> nested dict of NumPy arrays."""
+    """A task state of the port -> nested dict of NumPy arrays."""
     np_ = lambda t: t.detach().cpu().numpy()
-    out = {f: np_(getattr(state, f)) for f in state._fields
-           if f not in ("scene", "ctrl")}
-    out["scene"] = {f: np_(x) for f, x in state.scene._asdict().items()}
-    out["ctrl"] = {f: np_(x) for f, x in state.ctrl._asdict().items()}
-    return out
+    return {f: ({g: np_(y) for g, y in x._asdict().items()}
+                if f in _SUBSTATES else np_(x))
+            for f, x in state._asdict().items()}
 
 
 def params_from_numpy(q_init, params_cls=pushing.PushingParams, device=None,
                       **kw):
-    """A rod task's Params (``params_cls``: ``PushingParams``,
-    ``AligningParams``, ``SortingParams``) whose episode start posture is
+    """A task's Params (``params_cls``: ``AvoidingParams``,
+    ``PushingParams``, ``AligningParams``, ``SortingParams``,
+    ``StackingParams``) whose episode start posture is
     ``q_init`` (e.g. the JAX package's ``Params.q_init``), so both start
     alike; ``kw`` are the class's own arguments (n_substeps, max_steps,
     kinematic, num_boxes, ...)."""

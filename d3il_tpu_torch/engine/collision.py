@@ -1,4 +1,4 @@
-"""Batched narrow-phase colliders (the ones the pushing scene uses).
+"""Batched narrow-phase colliders (the ones the ported scenes use).
 
 Counterpart of ``d3il_tpu/engine/collision.py``, written over a leading env
 batch instead of under ``vmap``: poses are ``[B, 3]`` / ``[B, 4]``, a geom's
@@ -124,6 +124,31 @@ def capsule_box(cap_pos, cap_quat, radius, half_len, box_pos, box_quat,
     world = quat_ops.rotate(box_quat[:, None], pts) + box_pos[:, None]
     return sphere_box(world, radius, box_pos[:, None], box_quat[:, None],
                       half_size)
+
+
+def capsule_capsule(pos_a, quat_a, r_a, hl_a, pos_b, quat_b, r_b, hl_b):
+    """Capsule (A) vs capsule (B): one contact at the closest points of the
+    core segments (the clamped segment-segment solve). Poses [..., 3] /
+    [..., 4]; radii and half-lengths scalars."""
+    z = pos_a.new_tensor([0.0, 0.0, 1.0])
+    ua, ub = quat_ops.rotate(quat_a, z), quat_ops.rotate(quat_b, z)
+    a0, a1 = pos_a - hl_a * ua, pos_a + hl_a * ua
+    b0, b1 = pos_b - hl_b * ub, pos_b + hl_b * ub
+    d1, d2, r = a1 - a0, b1 - b0, a0 - b0
+    a, e, f = _dot(d1, d1), _dot(d2, d2), _dot(d2, r)
+    b, c = _dot(d1, d2), _dot(d1, r)
+    denom = (a * e - b * b).clamp_min(1e-12)
+    s = ((b * f - c * e) / denom).clamp(0.0, 1.0)
+    t = ((b * s + f) / e.clamp_min(1e-12)).clamp(0.0, 1.0)
+    s = ((b * t - c) / a.clamp_min(1e-12)).clamp(0.0, 1.0)
+    pa, pb = a0 + s[..., None] * d1, b0 + t[..., None] * d2
+    delta = pa - pb
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    n = delta / dist.clamp_min(1e-9)[..., None]
+    depth = r_a + r_b - dist
+    cpos = pb + n * (r_b - 0.5 * depth)[..., None]
+    return Contacts(pos=cpos[..., None, :], normal=n[..., None, :],
+                    depth=depth[..., None])
 
 
 def box_box(pos_a, quat_a, half_a, pos_b, quat_b, half_b):

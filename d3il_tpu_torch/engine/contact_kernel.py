@@ -13,7 +13,10 @@ forms the scaled Delassus matrix once and keeps each lane's rows of it in
 registers; the general variant keeps J and M^-1 J' in shared memory and
 takes any larger scene whose per-env working set fits one block's shared
 memory. A larger scene raises. Unlike the TPU kernel there is no 128-lane
-tile gate.
+tile gate. A scene with no free body (nf = 0, avoiding) passes empty
+``free_pos`` / ``free_quat`` tensors, whose pointers the kernel never reads
+(every loop over free bodies and free columns is empty; ``side_a`` /
+``side_b`` are all -1).
 """
 from __future__ import annotations
 
@@ -172,8 +175,6 @@ def phase_batched_bm(tables: ContactTables, pts, normal, depth, axes, anchors,
     if pts.device.type == "cpu":
         return phase_plain(meta, pts, normal, depth, axes, anchors, Minv_arm,
                            v_all, a_smooth, free_pos, free_quat, warm)
-    if meta.nf == 0:
-        raise NotImplementedError("contact kernel path needs free bodies")
     B = pts.shape[-1]
     ncon, nv_r, nf, nv = meta.ncon, meta.nv_r, meta.nf, meta.nv
     build.check_inputs({

@@ -71,6 +71,9 @@ def _pair_contacts(pair, pa, qa, pb, qb):
     if (ta, tb) == (CAPSULE, PLANE):
         return collision.capsule_plane(pa, qa, sa[0], sa[1], pb,
                                        plane_normal(qb))
+    if (ta, tb) == (CAPSULE, CAPSULE):
+        return collision.capsule_capsule(pa, qa, sa[0], sa[1], pb, qb, sb[0],
+                                         sb[1])
     raise NotImplementedError(f"no batched collider for pair {(ta, tb)}")
 
 

@@ -1,12 +1,13 @@
-"""The batched substep window: one rod-task env step (pushing, aligning,
-sorting with 2, 4 or 6 boxes) under full arm dynamics.
+"""The batched substep windows: one env step of every ported task under
+full arm dynamics (or with the arm beamed, in kinematic mode).
 
 Counterpart of ``d3il_tpu/engine/substep_bm.py`` (with the kernels on);
 every size comes from the scene (``nf`` free bodies, one inertia each,
-compound or not; ``ncon`` contact rows). Unlike the JAX package, which
-takes this window only where its contact kernel's tile test passes, every
-scene with free bodies runs it (sorting_4 and sorting_6 through K3's
-general variant). Batch-first state goes in and out; inside the window every
+compound or not, or none at all; ``ncon`` contact rows). Unlike the JAX
+package, which takes this window only where its contact kernel's tile test
+passes and the scene has free bodies, every scene runs it (sorting_4,
+sorting_6 and stacking through K3's general variant, avoiding with nf = 0).
+Batch-first state goes in and out; inside the window every
 tensor is batch-minor (``[..., B]``), the layout the three kernels read
 with neighbouring threads on neighbouring addresses:
 
@@ -21,6 +22,10 @@ with neighbouring threads on neighbouring addresses:
 With ``params.kinematic`` the arm is beamed along K1's trajectory instead:
 no K2, FK of the new posture in plain torch, and K3 with a zero arm inverse
 mass, so only the boxes respond to contact.
+
+The joint window (``joint_substeps_bm``: stacking's step, every task's
+reset hold) holds a joint setpoint instead: no K1, and K2 with qd_des and
+tau_model at zero.
 """
 from __future__ import annotations
 
@@ -220,21 +225,51 @@ def run_substeps_bm(params, sc: estep.SceneState, cs, des_pos, des_quat,
                                        old_des_vel=_bf(old_vel))
 
 
-def hold_substeps_bm(params, sc: estep.SceneState, n: int):
-    """n joint-PD hold substeps at q_hold = sc.q[:, :7] with qd_des = 0 and
-    tau_model = 0 (the model feedforward M qdd + C(q, 0) vanishes). In
-    kinematic mode the arm is beamed to its own posture with qd = 0."""
+def joint_target(st: Statics, sb: SceneBM, q_des, set_width):
+    """(q_new, qd_new) [9, B] of one kinematic tick of the joint window: the
+    arm moves toward q_des [7, B] at most 3 rad/s per joint (an unlimited
+    jump would teleport the hand and kick touching boxes); the fingers
+    rate-track set_width [B] at 0.1 m/s, or stay where they are when it is
+    None; the velocity is the finite difference."""
+    h = float(st.scene.dt)
+    qa = sb.q[:7] + torch.clamp(q_des - sb.q[:7], -3.0 * h, 3.0 * h)
+    w = sb.q[7:] if set_width is None else torch.minimum(
+        torch.maximum(set_width.expand(2, -1), sb.q[7:] - 0.1 * h),
+        sb.q[7:] + 0.1 * h)
+    q_new = torch.cat([qa, w])
+    return q_new, (q_new - sb.q) / h
+
+
+def joint_substeps_bm(params, sc: estep.SceneState, q_des, set_width,
+                      grasp_flag, n: int):
+    """n substeps of the joint window: joint PD toward the fixed setpoint
+    q_des [B, 7] with qd_des = 0 and tau_model = 0 (the model feedforward
+    M qdd + C(q_des, 0) vanishes), the gripper law at set_width [B] and
+    grasp_flag [B] (bool). No K1: the setpoint is the action. In kinematic
+    mode the arm is beamed along ``joint_target`` instead (no K2), and a
+    set_width of None keeps the fingers where they are."""
     st = params.statics
     sb = scene_to_bm(sc)
-    B = sb.q.shape[-1]
+    q_des = _bm(q_des)
     if params.kinematic:
         for _ in range(n):
-            sb = beam_substep_bm(st, sb, sb.q, torch.zeros_like(sb.q))
+            sb = beam_substep_bm(st, sb, *joint_target(st, sb, q_des,
+                                                       set_width))
         return scene_from_bm(sb)
-    q_hold = sb.q[:7].clone()
-    zeros = torch.zeros_like(q_hold)
-    sw = torch.full((B,), 0.04, dtype=sb.q.dtype, device=sb.q.device)
-    gf = torch.zeros((B,), dtype=torch.bool, device=sb.q.device)
+    zeros = torch.zeros_like(q_des)
     for _ in range(n):
-        sb = physics_substep_bm(st, sb, q_hold, zeros, zeros, sw, gf)
+        sb = physics_substep_bm(st, sb, q_des, zeros, zeros, set_width,
+                                grasp_flag)
     return scene_from_bm(sb)
+
+
+def hold_substeps_bm(params, sc: estep.SceneState, n: int):
+    """n joint-window substeps that hold the arm's posture: q_des =
+    sc.q[:, :7], the fingers commanded to 0.04 with the grasp off (in
+    kinematic mode they stay where they are, and qd = 0)."""
+    B = sc.q.shape[0]
+    dev = sc.q.device
+    sw = None if params.kinematic else torch.full((B,), 0.04, device=dev)
+    return joint_substeps_bm(params, sc, sc.q[:, :7].clone(), sw,
+                             torch.zeros((B,), dtype=torch.bool, device=dev),
+                             n)

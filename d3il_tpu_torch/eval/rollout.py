@@ -18,7 +18,8 @@ k sees the env state as of the entry of step k-1.
 
 with prev_abs_action initialized to the tcp position after reset. With
 ``pos_dim=3`` (aligning) the whole xyz setpoint is the policy's: the delta
-is xyz, clipped alike, and there is no fixed z.
+is xyz, clipped alike, and there is no fixed z. Stacking's rollout is in
+joint space (``make_joint_stepper``).
 """
 from __future__ import annotations
 
@@ -83,18 +84,11 @@ def make_rod_stepper(params, reset_fn, step_fn, observe_fn, policy_apply,
     return init, body
 
 
-def make_rod_rollout(params, reset_fn, step_fn, observe_fn, policy_apply,
-                     max_steps: int | None = None, pos_dim: int = 2):
-    """Whole-episode rollout (see make_rod_stepper).
-
-    Returns rollout(policy_params, policy_carry0, context, on_step=None)
-      -> (final env state, dones [T, B]). ``on_step(carry)``, when given,
-    sees the carry after every step (keep it free of host syncs).
-    """
-    T = max_steps if max_steps is not None else params.max_steps
-    init, body = make_rod_stepper(params, reset_fn, step_fn, observe_fn,
-                                  policy_apply, pos_dim)
-
+def _rollout(init, body, T: int):
+    """rollout(policy_params, policy_carry0, context, on_step=None) over a
+    stepper's (init, body) for T steps -> (final env state, dones [T, B]).
+    ``on_step(carry)``, when given, sees the carry after every step (keep
+    it free of host syncs)."""
     @torch.no_grad()
     def rollout(policy_params, policy_carry0, context, on_step=None):
         carry = init(policy_carry0, context)
@@ -107,3 +101,57 @@ def make_rod_rollout(params, reset_fn, step_fn, observe_fn, policy_apply,
         return carry[0], torch.stack(dones)
 
     return rollout
+
+
+def make_rod_rollout(params, reset_fn, step_fn, observe_fn, policy_apply,
+                     max_steps: int | None = None, pos_dim: int = 2):
+    """Whole-episode rollout of the Cartesian-delta tasks (see
+    make_rod_stepper and _rollout)."""
+    T = max_steps if max_steps is not None else params.max_steps
+    return _rollout(*make_rod_stepper(params, reset_fn, step_fn, observe_fn,
+                                      policy_apply, pos_dim), T)
+
+
+def make_joint_stepper(params, reset_fn, step_fn, observe_fn, robot_state_fn,
+                       policy_apply):
+    """(init, body) pair for the joint-space rollout (stacking):
+
+      obs_policy = concat(prev_action8, env_obs)       # 8 + 12 = 20 dims
+      pred = policy(obs_policy); q_des = pred[:7] + prev_action8[:7]
+      env action = [q_des, pred[7]] (the gripper width passed raw)
+
+    carry = (env state, policy carry, prev_action [B, 8], prev_obs
+    [B, Do], finished [B] bool); prev_action starts as robot_state() after
+    the reset (joint positions + gripper width).
+    """
+    def init(policy_carry0, context):
+        state = reset_fn(params, context)
+        prev_a = robot_state_fn(params, state)
+        obs0 = observe_fn(params, state)
+        finished = torch.zeros(prev_a.shape[0], dtype=torch.bool,
+                               device=prev_a.device)
+        return (state, policy_carry0, prev_a, obs0, finished)
+
+    def body(policy_params, carry):
+        state, pc, prev_a, prev_obs, finished = carry
+        obs_policy = torch.cat([prev_a, prev_obs], dim=1)
+        pc2, pred = policy_apply(policy_params, pc, obs_policy)
+        action = torch.cat([pred[:, :7] + prev_a[:, :7], pred[:, 7:8]], dim=1)
+        new_state, res = step_fn(params, state, action)
+        state2 = _freeze(finished, new_state, state)
+        pc2 = _freeze(finished, pc2, pc)
+        new_a = torch.where(finished[:, None], prev_a, action)
+        new_obs = torch.where(finished[:, None], prev_obs, res.obs)
+        return (state2, pc2, new_a, new_obs, finished | res.done)
+
+    return init, body
+
+
+def make_joint_rollout(params, reset_fn, step_fn, observe_fn, robot_state_fn,
+                       policy_apply, max_steps: int | None = None):
+    """Whole-episode joint-space rollout (see make_joint_stepper and
+    _rollout)."""
+    T = max_steps if max_steps is not None else params.max_steps
+    return _rollout(*make_joint_stepper(params, reset_fn, step_fn,
+                                        observe_fn, robot_state_fn,
+                                        policy_apply), T)

@@ -5,8 +5,8 @@ episode is one row of a batched rollout running in lockstep on the device,
 one Python loop over env steps under ``torch.no_grad()``.
 
 Each Sim exposes ``test_agent(agent) -> dict`` returning the reference's
-metrics (success rate, behavioral entropy, composite score) with the same
-formulas (eval/metrics.py). Fixed test contexts are the reference's shipped
+metrics (success rate, behavioral entropy, KL, composite score) with the
+same formulas (eval/metrics.py). Fixed test contexts are the reference's shipped
 ones; the fallback samples from seed 2, the seed the reference's context
 files were generated with.
 """
@@ -49,11 +49,13 @@ def _grid(n_contexts: int, n_trajs: int, seed: int, device):
     return cidx, torch.Generator(device=device).manual_seed(seed + 1)
 
 
-class _RodSim:
-    """What the rod tasks' Sims share: every (context, trajectory) episode
-    of the grid rolled out in lockstep through ``rollout.make_rod_rollout``.
-    A task's Sim names its env module, its default params, its context set,
-    the policy's input width and the rollout form (``pos_dim``)."""
+class _TaskSim:
+    """What the tasks' Sims share: every (context, trajectory) episode of
+    the grid rolled out in lockstep through ``make_rollout`` (the
+    Cartesian-delta rollout, ``rollout.make_rod_rollout``, unless a Sim
+    names another). A task's Sim names its env module, its default params,
+    its context set, the policy's input width and the rollout form
+    (``pos_dim``)."""
 
     pos_dim = 2
 
@@ -69,6 +71,11 @@ class _RodSim:
     def obs_dim(self) -> int:
         raise NotImplementedError
 
+    def make_rollout(self, params, env, policy_apply):
+        return rollout.make_rod_rollout(
+            params, env.reset, env.step, env.get_observation, policy_apply,
+            pos_dim=self.pos_dim)
+
     def run_episodes(self, agent, params=None, on_step=None):
         """Roll every (context, trajectory) episode to params.max_steps;
         returns (final env state [C*T, ...], dones [max_steps, C*T])."""
@@ -77,9 +84,7 @@ class _RodSim:
         ctxs = self.contexts(params)
         cidx, gen = _grid(self.n_contexts, self.n_trajectories_per_context,
                           self.seed, params.device)
-        run = rollout.make_rod_rollout(
-            params, env.reset, env.step, env.get_observation,
-            agent.policy_apply(gen), pos_dim=self.pos_dim)
+        run = self.make_rollout(params, env, agent.policy_apply(gen))
         carry0 = agent.init_carry(self.obs_dim(), cidx.shape[0])
         return run(agent.params, carry0, tuple(x[cidx] for x in ctxs),
                    on_step=on_step)
@@ -90,7 +95,35 @@ class _RodSim:
 
 
 @dataclass
-class PushingSim(_RodSim):
+class AvoidingSim(_TaskSim):
+    """No contexts: the grid repeats one empty context, so all
+    n_contexts x n_trajectories_per_context episodes start alike. Default
+    workload = the reference benchmark's 480 trajectories (1 x 480); the
+    entropy pools every successful episode's gate encoding (base 24)."""
+    seed: int = 0
+    n_contexts: int = 1
+    n_trajectories_per_context: int = 480
+
+    def env(self):
+        from d3il_tpu_torch.envs import avoiding
+        return avoiding
+
+    def default_params(self):
+        return avoiding_params()
+
+    def contexts(self, params):
+        return self.env().empty_context(1, params.device)
+
+    def obs_dim(self):
+        return 4        # des xy + tcp xy
+
+    def score(self, state) -> dict:
+        return {k: float(v) for k, v in metrics.avoiding_score(
+            state.success.to(torch.float32), state.mode_encoding).items()}
+
+
+@dataclass
+class PushingSim(_TaskSim):
     """Default workload = the reference benchmark's 30 contexts x 16 trajs,
     on the reference's shipped fixed test contexts."""
     seed: int = 0
@@ -121,7 +154,7 @@ class PushingSim(_RodSim):
 
 
 @dataclass
-class AligningSim(_RodSim):
+class AligningSim(_TaskSim):
     """Default workload = 60 contexts x 8 trajs on the reference's shipped
     fixed contexts; the policy moves the setpoint in xyz."""
     seed: int = 0
@@ -159,7 +192,7 @@ class AligningSim(_RodSim):
 
 
 @dataclass
-class SortingSim(_RodSim):
+class SortingSim(_TaskSim):
     """Mode = bit-packed color order; score SR - KL against the demo mode
     prior (the generated demos' mode histogram when the task's data
     directory exists, else uniform over the balanced color orders).
@@ -208,6 +241,48 @@ class SortingSim(_RodSim):
         return self.score(state, mode_keys, prior)
 
 
+@dataclass
+class StackingSim(_TaskSim):
+    """Default workload = 60 contexts x 18 trajs on the reference's shipped
+    fixed contexts, at a horizon of 400 steps; joint-space rollout. KL is
+    scored against the shipped demo mode priors (``stacking_mode_prob.pkl``),
+    uniform where that file is missing."""
+    seed: int = 0
+    n_contexts: int = 60
+    n_trajectories_per_context: int = 18
+
+    def env(self):
+        from d3il_tpu_torch.envs import stacking
+        return stacking
+
+    def default_params(self):
+        return stacking_params(max_steps=400)
+
+    def contexts(self, params):
+        return _fixed_or_sampled(ref_contexts.stacking_contexts,
+                                 self.env().sample_context, self.n_contexts,
+                                 True, params.device)
+
+    def obs_dim(self):
+        return 20       # previous action (7 joints + width) + 12-dim obs
+
+    def make_rollout(self, params, env, policy_apply):
+        return rollout.make_joint_rollout(
+            params, env.reset, env.step, env.get_observation, env.robot_state,
+            policy_apply)
+
+    def score(self, state) -> dict:
+        priors = ref_contexts.stacking_mode_priors()
+        if priors is None:
+            priors = (np.full(3, 1 / 3), np.full(6, 1 / 6), np.full(6, 1 / 6))
+        C, T = self.n_contexts, self.n_trajectories_per_context
+        f32 = lambda x: x.to(torch.float32).reshape(C, T)
+        return {k: float(v) for k, v in metrics.stacking_score(
+            state.mode.reshape(C, T, 3), state.mode_len.reshape(C, T),
+            f32(state.success), f32(state.mode_len > 0),
+            f32(state.mode_len > 1), *priors).items()}
+
+
 def sorting_uniform_prior(num_boxes: int):
     """All bit-packed encodings of balanced red/blue orders, uniform prior."""
     half = num_boxes // 2
@@ -216,6 +291,12 @@ def sorting_uniform_prior(num_boxes: int):
         for bits in itertools.permutations([0] * half + [1] * half)})
     keys = np.asarray(keys, np.int32)
     return keys, np.full(len(keys), 1.0 / len(keys), np.float32)
+
+
+def avoiding_params(**kw):
+    """The task's default params (35 substeps, 15 solver iterations)."""
+    from d3il_tpu_torch.envs import avoiding
+    return avoiding.AvoidingParams(**kw)
 
 
 def pushing_params(**kw):
@@ -234,3 +315,9 @@ def sorting_params(num_boxes: int, **kw):
     """The task's default params (35 substeps, 25 solver iterations)."""
     from d3il_tpu_torch.envs import sorting
     return sorting.SortingParams(num_boxes, **kw)
+
+
+def stacking_params(**kw):
+    """The task's default params (30 substeps, 40 solver iterations)."""
+    from d3il_tpu_torch.envs import stacking
+    return stacking.StackingParams(**kw)

@@ -71,10 +71,16 @@ def _sorting(n: int) -> TaskSpec:
         train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 8})
 
 
-# Workloads follow the reference benchmark scripts: pushing 30 contexts x
-# 16 trajectories, aligning and sorting 60 x 8. The rollout form (a planar
-# or, for aligning, an xyz setpoint) is the task's Sim's (eval/sims.py).
+# Workloads follow the reference benchmark scripts: avoiding 480
+# trajectories (one empty context x 480), pushing 30 contexts x 16
+# trajectories, aligning and sorting 60 x 8, stacking 60 x 18. The rollout
+# form (a planar or, for aligning, an xyz setpoint; stacking's joint
+# setpoint) is the task's Sim's (eval/sims.py).
 TASKS: dict[str, TaskSpec] = _Ported("task", {
+    "avoiding": TaskSpec(
+        "avoiding", "d3il_tpu_torch.envs.avoiding", "AvoidingParams",
+        ds.assemble_avoiding, 4, 2, "AvoidingSim", 250,
+        train_kw={"epochs": 80, "n_contexts": 1, "n_trajs": 480}),
     # the tuned training window stays 1 (see the JAX registry)
     "pushing": TaskSpec(
         "pushing", "d3il_tpu_torch.envs.pushing", "PushingParams",
@@ -85,6 +91,11 @@ TASKS: dict[str, TaskSpec] = _Ported("task", {
         ds.assemble_aligning, 20, 3, "AligningSim", 400,
         train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 8}),
     **{f"sorting_{n}": _sorting(n) for n in (2, 4, 6)},
+    "stacking": TaskSpec(
+        "stacking", "d3il_tpu_torch.envs.stacking", "StackingParams",
+        ds.assemble_stacking, 20, 8, "StackingSim", 1000,
+        train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 18,
+                  "window": 5}),
 })
 
 

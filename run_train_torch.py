@@ -1,6 +1,8 @@
 """Train + evaluate an agent on a task with the PyTorch port.
 
   python run_train_torch.py --task pushing --agent gmm --epochs 100
+  python run_train_torch.py --task avoiding --agent gmm --epochs 60 \
+      --ckpt ckpts/av.pt --skip-eval --log-dir runs
   python run_train_torch.py --task pushing --agent bc --device cpu \
       --epochs 2 --n-contexts 2 --n-trajs 2 --eval-max-steps 3 --kinematic
 
@@ -30,6 +32,7 @@ from d3il_tpu_torch.agents import base as agent_base  # noqa: E402
 from d3il_tpu_torch.data import dataset as ds  # noqa: E402
 from d3il_tpu_torch.data.scaler import Scaler  # noqa: E402
 from d3il_tpu_torch.envs.common import resolve_device  # noqa: E402
+from d3il_tpu_torch.utils import logging as run_logging  # noqa: E402
 
 
 def agent_kwargs(name: str, window: int, hidden: int, layers: int) -> dict:
@@ -104,6 +107,8 @@ def run_one(args) -> dict:
     spec, agent, ema, train_data, val_data = build_agent_and_data(
         args, generator)
 
+    logger = run_logging.RunLogger(
+        run_dir=args.log_dir, name=f"{args.task}_{args.agent}_s{args.seed}")
     cfg = agent_base.TrainConfig(epochs=args.epochs,
                                  batch_size=args.batch_size,
                                  window_size=args.window,
@@ -111,8 +116,8 @@ def run_one(args) -> dict:
     t0 = time.time()
     best, final, hist = agent_base.fit(
         agent.loss_fn(), agent.params, train_data, val_data, cfg, generator,
-        log_every=10, checkpoint_dir=args.resume_dir,
-        checkpoint_every=args.ckpt_every)
+        log_every=10, callback=logger.epoch_callback,
+        checkpoint_dir=args.resume_dir, checkpoint_every=args.ckpt_every)
     train_seconds = round(time.time() - t0, 1)
     print(f"training done in {train_seconds:.1f}s, "
           f"final loss {hist[-1]['train_loss']:.5f}")
@@ -132,13 +137,16 @@ def run_one(args) -> dict:
     result = {}
     if not args.skip_eval:
         result = evaluate(spec, agent, args)
-    return {"task": args.task, "agent": args.agent, "seed": args.seed,
-            "eval_mode": "kinematic" if args.kinematic else "dynamic",
-            "data": args.data, "device": str(device),
-            "date": time.strftime("%Y-%m-%d", time.gmtime()),
-            "train_seconds": train_seconds,
-            "final_train_loss": round(float(hist[-1]["train_loss"]), 6),
-            **result}
+    row = {"task": args.task, "agent": args.agent, "seed": args.seed,
+           "eval_mode": "kinematic" if args.kinematic else "dynamic",
+           "data": args.data, "device": str(device),
+           "date": time.strftime("%Y-%m-%d", time.gmtime()),
+           "train_seconds": train_seconds,
+           "final_train_loss": round(float(hist[-1]["train_loss"]), 6),
+           **result}
+    logger.log({"event": "result", **row})
+    logger.close()
+    return row
 
 
 def _parser():
@@ -153,12 +161,15 @@ def _parser():
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--n-contexts", type=int, default=15)
     ap.add_argument("--n-trajs", type=int, default=4,
-                    help="trajectories per context")
+                    help="trajectories per context (avoiding: its one "
+                    "empty context)")
     ap.add_argument("--eval-max-steps", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kinematic", action="store_true", default=False,
                     help="fast kinematic-arm eval (default: full dynamics)")
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--log-dir", default=None,
+                    help="directory of the run's JSONL metric stream")
     ap.add_argument("--resume-dir", default=None,
                     help="mid-run checkpoint dir: resumes full train state")
     ap.add_argument("--ckpt-every", type=int, default=0,

@@ -317,11 +317,12 @@ def test_fit_lowers_the_loss():
 
 
 def test_registry_names_what_is_ported():
-    assert sorted(registry.TASKS) == ["aligning", "pushing", "sorting_2",
-                                      "sorting_4", "sorting_6"]
+    assert sorted(registry.TASKS) == ["aligning", "avoiding", "pushing",
+                                      "sorting_2", "sorting_4", "sorting_6",
+                                      "stacking"]
     assert sorted(registry.AGENTS) == ["bc", "gmm"]
     with pytest.raises(KeyError, match="ported.*pushing"):
-        registry.TASKS["stacking"]
+        registry.TASKS["inserting"]
     with pytest.raises(KeyError, match="ported.*bc.*gmm"):
         registry.make_agent("ddpm", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):

@@ -13,6 +13,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from chip_smoke import (avoiding_contact_posture,  # noqa: E402
+                        box_between_fingers)
 from d3il_tpu_torch.control import gains  # noqa: E402
 from d3il_tpu_torch.engine import (contact, contact_kernel, dyn_kernel,  # noqa: E402
                                    substep_bm)
@@ -328,4 +330,119 @@ def test_arm_kernels_rod_scenes(cuda_device, task):
     assert dyn_kernel.arm_stage_bm.launches == n0 + 1
     for a, b, tol in zip(out2, ref2, (1e-5, 1e-5, 1e-5, 1e-5, 3e-4, 1e-3,
                                       1e-3)):
+        assert _scaled_err(a, b) <= tol
+
+
+def _avoiding_contact_inputs(B):
+    """K3's inputs on one dynamic substep of avoiding (no free body, nf =
+    0) on the CPU: each env's arm at a seeded perturbation of a posture
+    whose rod sits ~5 mm inside the first obstacle, so the rod-obstacle row
+    carries force."""
+    from d3il_tpu_torch.envs import avoiding
+    params = avoiding.AvoidingParams(n_substeps=2, device="cpu",
+                                     q_init=Q_INIT)
+    qc = avoiding_contact_posture(params)
+    state = avoiding.reset(params, avoiding.empty_context(B))
+    rng = np.random.default_rng(12)
+    q = state.scene.q.clone()
+    q[:, :7] = torch.from_numpy(
+        (qc + 1e-3 * rng.standard_normal((B, 7))).astype(np.float32))
+    sb = substep_bm.scene_to_bm(state.scene._replace(q=q))
+    st = params.statics
+    arm = dyn_kernel.arm_stage_bm(st.arm, sb.q, sb.qd, sb.q[:7].contiguous(),
+                                  torch.zeros(7, B), torch.zeros(7, B),
+                                  torch.full((B,), 0.04),
+                                  torch.zeros(B, dtype=torch.bool))
+    return st.meta, substep_bm.contact_inputs(st, sb, arm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BATCHES)
+def test_contact_kernel_avoiding_no_free_body(cuda_device, B):
+    """K3's register variant on a scene with no free body (avoiding: 8
+    contacts, 24 rows, nv 9): empty free-body inputs, whose pointers the
+    kernel must not read, held to the plain version at the tolerance
+    above."""
+    meta, args = _avoiding_contact_inputs(B)
+    assert meta.nf == 0 and args[8].shape == (0, 3, B)
+    # contact 2 (pair 1): the rod against the first obstacle, in every env
+    f_ref, _ = contact_kernel.phase_plain(meta, *args)
+    assert (f_ref[2].abs().amax(dim=0) > 1e-3).all()
+    tables = _hold_contact(meta, args, cuda_device)
+    assert (tables.geometry.variant, tables.geometry.smem_per_env) == \
+        (1, 3632)
+
+
+# the stacking task's start posture (the JAX package's
+# StackingParams.q_init)
+Q_INIT_STACKING = np.array([-8.73528734e-07, -4.12198342e-02,
+                            7.97928294e-07, -2.18946218e+00, 3.53404417e-08,
+                            2.15303779e+00, 7.85398126e-01])
+
+
+def _stacking_state(B):
+    """Stacking's params and a reset of B seeded contexts on the CPU, each
+    env's red box moved between the open fingers, 1 mm into the first tip
+    pad, so the finger rows carry force."""
+    from d3il_tpu_torch.envs import stacking
+    params = stacking.StackingParams(n_substeps=2, device="cpu",
+                                     q_init=Q_INIT_STACKING)
+    state = stacking.reset(params, stacking.sample_context(
+        torch.Generator().manual_seed(13), B))
+    sc = state.scene
+    fp, fq = sc.free_pos.clone(), sc.free_quat.clone()
+    fp[:, 0] = box_between_fingers(params, sc)
+    fq[:, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    return params, sc._replace(free_pos=fp, free_quat=fq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BATCHES)
+def test_contact_kernel_stacking_fingers(cuda_device, B):
+    """K3's general variant on stacking (88 contacts, 264 rows, nv 27) with
+    the boxes on the table and a finger's tip pad pressing the red box:
+    rows on the finger slide joints (columns 7, 8 of J) that carry force,
+    held to the plain version at the tolerance above."""
+    params, sc = _stacking_state(B)
+    st = params.statics
+    sb = substep_bm.scene_to_bm(sc)
+    arm = dyn_kernel.arm_stage_bm(st.arm, sb.q, sb.qd, sb.q[:7].contiguous(),
+                                  torch.zeros(7, B), torch.zeros(7, B),
+                                  torch.zeros(B),
+                                  torch.ones(B, dtype=torch.bool))
+    args = substep_bm.contact_inputs(st, sb, arm)
+    f_ref, q_ref = contact_kernel.phase_plain(st.meta, *args)
+    # pair 6 (contacts 24-27): the first tip pad against the red box
+    assert (f_ref[24:28].abs().amax(dim=(0, 1)) > 1e-3).all()
+    assert (q_ref[7:9].abs() > 0).any(dim=0).all()
+    tables = _hold_contact(st.meta, args, cuda_device)
+    assert tables.geometry.variant == 2
+    assert tables.geometry.smem_per_env == 68240
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BATCHES)
+def test_arm_stage_gripper_chain_grasp(cuda_device, B):
+    """K2 on the gripper chain (15 bodies) with the grasp law on: the
+    fingers open at 0.04, the command width 0 and the grasp flag set (the
+    -20 N grasp force), the joint setpoint 0.01 rad off, from a stacking
+    reset; held to the plain version at the tolerances above."""
+    params, sc = _stacking_state(B)
+    st = params.statics
+    assert st.scene.robot.nb == 15
+    sb = substep_bm.scene_to_bm(sc)
+    rng = np.random.default_rng(14)
+    q_des = sb.q[:7] + torch.from_numpy(
+        (0.01 * rng.standard_normal((7, B))).astype(np.float32))
+    ins = (sb.q, sb.qd, q_des.contiguous(), torch.zeros(7, B),
+           torch.zeros(7, B), torch.zeros(B))
+    gf = torch.ones(B, dtype=torch.bool)
+    ref = dyn_kernel.arm_stage_bm(st.arm, *ins, gf)
+    n0 = dyn_kernel.arm_stage_bm.launches
+    out = dyn_kernel.arm_stage_bm(st.arm, *(x.to(cuda_device) for x in ins),
+                                  gf.to(cuda_device))
+    torch.cuda.synchronize()
+    assert dyn_kernel.arm_stage_bm.launches == n0 + 1
+    for a, b, tol in zip(out, ref, (1e-5, 1e-5, 1e-5, 1e-5, 3e-4, 1e-3,
+                                    1e-3)):
         assert _scaled_err(a, b) <= tol

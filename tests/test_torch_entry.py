@@ -97,28 +97,35 @@ def test_resume_dir_continues_training(small_task, tmp_path):
     assert row["final_train_loss"] == full["final_train_loss"]
 
 
-# the aligning and sorting tasks' start postures (the JAX package's
-# AligningParams.q_init and SortingParams.q_init)
+# the other tasks' start postures (the JAX package's Params.q_init;
+# avoiding starts at pushing's pose)
 Q_INIT_TASK = {
     "aligning": np.array([-0.40412223, 0.32504207, -0.20123088, -1.84203374,
                           0.07952347, 2.16244817, 0.14624882]),
     "sorting_4": np.array([-0.33100116, 0.24833255, -0.19925672, -1.95236027,
                            0.06261307, 2.19832397, 0.22458877]),
+    "avoiding": Q_INIT,
+    "stacking": np.array([-8.73528734e-07, -4.12198342e-02, 7.97928294e-07,
+                          -2.18946218e+00, 3.53404417e-08, 2.15303779e+00,
+                          7.85398126e-01]),
 }
 
 
 def test_registry_lists_the_ported_tasks():
-    """Five tasks, with the JAX registry's dims, horizons and workloads; a
+    """Seven tasks, with the JAX registry's dims, horizons and workloads; a
     task that is not ported raises the KeyError that names the ported."""
-    assert sorted(registry.TASKS) == ["aligning", "pushing", "sorting_2",
-                                      "sorting_4", "sorting_6"]
+    assert sorted(registry.TASKS) == ["aligning", "avoiding", "pushing",
+                                      "sorting_2", "sorting_4", "sorting_6",
+                                      "stacking"]
     dims = {k: (t.obs_dim, t.act_dim, t.max_steps, t.sim_name)
             for k, t in registry.TASKS.items()}
-    assert dims == {"pushing": (10, 2, 400, "PushingSim"),
+    assert dims == {"avoiding": (4, 2, 250, "AvoidingSim"),
+                    "pushing": (10, 2, 400, "PushingSim"),
                     "aligning": (20, 3, 400, "AligningSim"),
                     "sorting_2": (10, 2, 700, "SortingSim"),
                     "sorting_4": (16, 2, 700, "SortingSim"),
-                    "sorting_6": (22, 2, 700, "SortingSim")}
+                    "sorting_6": (22, 2, 700, "SortingSim"),
+                    "stacking": (20, 8, 1000, "StackingSim")}
     for n in (2, 4, 6):
         spec = registry.TASKS[f"sorting_{n}"]
         assert spec.params_kw == {"num_boxes": n}
@@ -126,17 +133,25 @@ def test_registry_lists_the_ported_tasks():
     for k in ("aligning", "sorting_2"):
         assert registry.TASKS[k].train_kw == {"epochs": 100, "n_contexts": 60,
                                               "n_trajs": 8}
-    with pytest.raises(KeyError, match="not ported.*'sorting_6'"):
-        registry.TASKS["stacking"]
+    # avoiding: the reference's 480 trajectories from its one (empty)
+    # context; stacking: 60 x 18 at the training window 5
+    assert registry.TASKS["avoiding"].train_kw == {
+        "epochs": 80, "n_contexts": 1, "n_trajs": 480}
+    assert registry.TASKS["stacking"].train_kw == {
+        "epochs": 100, "n_contexts": 60, "n_trajs": 18, "window": 5}
+    with pytest.raises(KeyError, match="not ported.*'stacking'"):
+        registry.TASKS["inserting"]
 
 
-@pytest.mark.parametrize("task", ["aligning", "sorting_4"])
+@pytest.mark.parametrize("task", ["aligning", "sorting_4", "avoiding",
+                                  "stacking"])
 def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
     """run_train_torch trains a tiny gmm agent on the task's demonstrations
     for one epoch, saves it and evaluates it through the task's Sim (2
     contexts x 1 trajectory, 2 steps of a 2-substep window, full arm
     dynamics, the given start posture); run_eval_torch reloads it and gives
-    the same metrics."""
+    the same metrics. Stacking trains at its window of 5 and rolls out in
+    joint space; avoiding's two contexts are both its empty one."""
     spec = dataclasses.replace(
         registry.TASKS[task],
         params_kw=dict(registry.TASKS[task].params_kw, n_substeps=2,
@@ -146,25 +161,32 @@ def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
     args = run_train_torch.make_args(
         task=task, agent="gmm", device="cpu", epochs=1, hidden=16, layers=2,
         n_contexts=2, n_trajs=1, eval_max_steps=2, ckpt=ckpt,
-        data=os.path.join(ROOT, "data"))
+        data=os.path.join(ROOT, "data"), log_dir=str(tmp_path / "runs"))
     row = run_train_torch.run_one(args)
+    # --log-dir: the run's JSONL stream, start, one epoch, the row, end
+    with open(tmp_path / "runs" / f"{task}_gmm_s0.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    assert [e["event"] for e in events] == ["start", "epoch", "result", "end"]
+    assert {k: events[2][k] for k in row} == row
     assert row["task"] == task and row["eval_mode"] == "dynamic"
     assert np.isfinite(row["final_train_loss"])
     assert 0.0 <= row["success_rate"] <= 1.0
-    # sorting scores SR - KL against the demo prior, aligning reports the
-    # final distance to the target
+    # sorting scores SR - KL against the demo prior, stacking per prefix,
+    # aligning reports the final distance to the target
     assert ("kl" in row) == task.startswith("sorting")
+    assert ("kl_3" in row) == (task == "stacking")
     assert ("mean_distance" in row) == (task == "aligning")
+    assert args.window == (5 if task == "stacking" else 1)
     spec2, agent, meta = run_eval_torch.load_agent(ckpt, "cpu")
     assert meta["task"] == task and spec2 is spec
     out = run_train_torch.evaluate(spec2, agent, args)
-    for k in ("success_rate", "entropy", "score"):
-        assert out[k] == row[k]
+    for k in out.keys() - {"eval_seconds"}:
+        assert out[k] == row[k], k
 
 
 def test_cli_rejects_what_is_not_ported():
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--task",
-         "stacking", "--device", "cpu"], capture_output=True, text=True,
+         "inserting", "--device", "cpu"], capture_output=True, text=True,
         timeout=120)
     assert r.returncode != 0 and "invalid choice" in r.stderr

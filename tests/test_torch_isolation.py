@@ -24,14 +24,16 @@ names = [m.name for m in pkgutil.walk_packages(d3il_tpu_torch.__path__,
                                                "d3il_tpu_torch.")]
 for name in names + ["run_train_torch", "run_eval_torch"]:
     importlib.import_module(name)
-for want in ("envs.aligning", "envs.sorting", "data.scaler", "data.dataset",
+for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
+             "envs.stacking", "control.joint_pd", "utils.logging",
+             "data.scaler", "data.dataset",
              "agents.nets.mlp", "agents.bc",
              "agents.gmm", "agents.base", "eval.metrics", "eval.contexts",
              "eval.rollout", "eval.sims", "registry", "convert"):
     assert "d3il_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
-assert len(names) >= 35, names
+assert len(names) >= 40, names
 print("ok", len(names))
 """
 

@@ -1,0 +1,50 @@
+"""Convert a checkpoint of the JAX package's run_train.py into one that
+run_eval_torch.py loads, so that one set of weights is evaluated in both
+packages' windows.
+
+    python run_train.py --task avoiding --agent gmm --epochs 60 \
+        --skip-eval --ckpt build/av_jax
+    python tools/jax_ckpt_to_torch.py build/av_jax build/av_jax.pt
+    python run_eval_torch.py --ckpt build/av_jax.pt --n-trajs 48 --seed 1
+
+Runs on the CPU (the JAX checkpoint is an orbax tree); the output is a
+plain ``torch.save`` file, read anywhere the port runs.
+"""
+import argparse
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("src", help="orbax checkpoint directory of run_train.py")
+    ap.add_argument("dst", help="port checkpoint file to write")
+    args = ap.parse_args()
+    import torch
+    from d3il_tpu.agents import base as jbase
+    from d3il_tpu_torch import convert
+    from d3il_tpu_torch.agents import base
+    ck = jbase.load_checkpoint(args.src)
+    m = ck["meta"]
+    if m["agent"] not in ("bc", "gmm"):
+        raise SystemExit(f"convert carries bc and gmm weights, not "
+                         f"{m['agent']}")
+    params = convert.agent_params_from_numpy(
+        str(m["agent"]), ck["params"], device="cpu")
+    meta = {"task": str(m["task"]), "agent": str(m["agent"]),
+            "seed": int(m["seed"]), "window": int(m["window"]),
+            "hidden": int(m["hidden"]), "layers": int(m["layers"]),
+            "scale_data": bool(m["scale_data"])}
+    scaler = {k: torch.as_tensor(np.array(v, np.float32))
+              for k, v in ck["scaler"].items()}
+    base.save_checkpoint(args.dst, params, extra={"meta": meta,
+                                                  "scaler": scaler})
+    print(f"wrote {args.dst}: {meta}")
+
+
+if __name__ == "__main__":
+    main()
