@@ -81,9 +81,29 @@ Phases (each fatal on failure):
      rollout has none), the KL beside success and entropy, launch counts
      K1 = 0, K2 and K3 = 30 x steps + 5 (the reset's joint substeps), no K2
      in kinematic mode; one profiled dynamic step;
-  7. print the ``kernels`` JSON line (with ``design``, the PR whose design
+  7. inserting, the largest scene (78 pairs, 810 rows, nv 27): the rod task
+     of phase 5 on InsertingParams() at full width and its Sim's 30 x 8
+     reference workload (240 episodes, contexts from seed 2), the hold scene
+     the reset with each env's rod pressing its red box 1 mm into a maze
+     wall (``rod_pressing_box``): K1 (the window of a setpoint 1 cm
+     further toward the wall), K2 and K3's general variant (207,288 B of shared memory per env, one env
+     per block) held, K3 timed, its shared memory per env and block, blocks
+     per SM and waves printed, a failure unless the box-wall row carries
+     force in 99 % of the envs; gmm trained INSERT_EPOCHS epochs on
+     data/inserting and rolled out INSERT_STEPS_DYNAMIC dynamic and
+     INSERT_STEPS_KINEMATIC kinematic steps with phase 5's checks; one
+     profiled dynamic step;
+  8. the agents: each of AGENTS (gpt_bc, bet, bet_mlp, act, cvae, lstm_gmm,
+     ibc, ddpm, ddpm_encdec) at its registry defaults trained on the card
+     on data/pushing for AGENT_EPOCHS epochs, saved and reloaded through the
+     entry points' functions, and rolled out AGENT_STEPS dynamic steps of
+     PushingSim's 30 x 16 episodes (K1, K2 and K3's register variant under
+     every policy); checks of finite actions and state, the metrics' range
+     and the launch counts; prints train seconds, episode-steps/s and the
+     finite share of the actions, then one ``agents`` JSON line;
+  9. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
-     and one K3 row per scene of phases 5 and 6), the card line, and last
+     and one K3 row per scene of phases 5-7), the card line, and last
      {"ok": true, "device": {...}}.
 """
 import json
@@ -98,12 +118,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8192
 HOLD_STEPS = PUSH_STEPS = 10
 EVAL_CONTEXTS, EVAL_TRAJS = 30, 16      # the reference workload: 480 episodes
-EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 40, 10    # of the task's 400
+EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 30, 10    # of the task's 400
 REPEAT_STEPS = 5                        # bc determinism rollouts (kinematic)
 ROLLOUT_CHECK_STEPS = 6     # push steps before the B = 480 substep checks
 ROD_TASKS = ("avoiding", "aligning", "sorting_2", "sorting_4", "sorting_6")
 # their reference workloads, contexts x trajectories: 480 episodes each
-ROD_WORKLOADS = {"avoiding": (1, 480)}  # no context: one empty context
+ROD_WORKLOADS = {"avoiding": (1, 480),  # no context: one empty context
+                 "inserting": (30, 8)}
 ROD_CONTEXTS, ROD_TRAJS = 60, 8         # the others
 ROD_EPOCHS = 5                          # of the registry's 100
 ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 4, 2   # of 400 (aligning), 700
@@ -116,11 +137,21 @@ ROD_REPEAT_TASKS = ("aligning", "sorting_2")   # bc determinism rollouts
 # K2 is held once per distinct arm state: the arm sees no box, so the
 # sorting scenes start it alike and only the start pose tells them apart;
 # avoiding's arms are set into the obstacle
-ROD_K2_TASKS = ("avoiding", "aligning", "sorting_2")
+ROD_K2_TASKS = ("avoiding", "aligning", "sorting_2", "inserting")
 ROD_REPEAT_STEPS = 1
 STACK_CONTEXTS, STACK_TRAJS = 60, 18    # stacking's reference workload: 1,080
 STACK_EPOCHS = 5                        # of the registry's 100
 STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 4, 2   # of 1,000
+INSERT_EPOCHS = 5                       # of the registry's 100
+INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 4, 2  # of InsertingSim's 400
+# the agents driven on the pushing evaluation path at their registry
+# defaults, beside gmm (phase 4)
+AGENTS = ("gpt_bc", "bet", "bet_mlp", "act", "cvae", "lstm_gmm", "ibc",
+          "ddpm", "ddpm_encdec")
+AGENT_EPOCHS = 2                        # of the registry's 100
+AGENT_STEPS = 4                         # dynamic steps of PushingSim's 400
+SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
@@ -813,9 +844,45 @@ def box_between_fingers(params, sc):
     return tips[0] + u / u.norm(dim=1, keepdim=True) * (0.004 + 0.03 - 1e-3)
 
 
+# inserting's press: the red box 1 mm into the right face of maze_9 (the
+# wall left of its target slot: centre x 0.32, half-width 0.01), the rod 3
+# mm into the box's opposite face
+PRESS_BOX_XY = (0.32 + 0.01 + 0.025 - 0.001, 0.276)
+PRESS_WALL = "maze_9"
+
+
+def rod_pressing_box(params, sc):
+    """Inserting's scene ``sc`` with each env's red box axis-aligned 1 mm
+    into maze_9's face, on the table, and its arm at the offline-IK posture
+    of a tcp 3 mm into the box's opposite face: the rod presses the box
+    against the wall. The CUDA test of inserting's contacts takes its
+    scene from here too."""
+    import numpy as np
+    import torch
+    from d3il_tpu_torch.control import offline_ik
+    from d3il_tpu_torch.envs import scenes
+    x, y = PRESS_BOX_XY
+    tcp = np.array([x + 0.025 + 0.01 - 0.003, y, 0.12])
+    qc = offline_ik.solve(params.ctrl_chain, tcp, params.init_ee_quat,
+                          q0=params.q_init)
+    dev = sc.q.device
+    q, fp, fq = sc.q.clone(), sc.free_pos.clone(), sc.free_quat.clone()
+    q[:, :7] = torch.as_tensor(qc, dtype=torch.float32, device=dev)
+    fp[:, 0] = torch.tensor([x, y, scenes.TABLE_Z + 0.025], device=dev)
+    fq[:, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    return sc._replace(q=q, qd=torch.zeros_like(sc.qd), free_pos=fp,
+                       free_quat=fq)
+
+
+def is_box_wall(pair):
+    """The pair of inserting's red box and the wall it is pressed into."""
+    return {pair.geom_a.name, pair.geom_b.name} == {"push_box1", PRESS_WALL}
+
+
 def rod_check_scene(spec, params):
     """The scene of a rod task's evaluation batch (its Sim's contexts x
-    trajectories, B = 480) on which K2 and K3 are held, and what it is.
+    trajectories: B = 480, inserting's 240) on which K2 and K3 are held,
+    and what it is.
     Aligning and sorting: the reset's initial scene through
     ROD_CHECK_SUBSTEPS hold substeps, while the contacts carry force.
     Avoiding (no context, no free body): the reset, then each arm at a
@@ -829,6 +896,10 @@ def rod_check_scene(spec, params):
     sim = spec.make_sim(n_contexts=C, n_trajectories_per_context=T)
     cidx, _ = sims._grid(C, T, 0, params.device)
     ctx = tuple(x[cidx] for x in sim.contexts(params))
+    if spec.name == "inserting":
+        sc = env.reset(params, ctx).scene
+        return (rod_pressing_box(params, sc), "after the reset, the rod "
+                "pressing the red box 1 mm into maze_9")
     if spec.name != "avoiding":
         held = ROD_CHECK_SUBSTEPS[spec.name]
         return (common.settle(params, env.initial_scene(params, ctx), n=held),
@@ -845,11 +916,12 @@ def rod_check_scene(spec, params):
 
 
 def rod_substep_kernels(spec, params, tols):
-    """K2 and K3 on one real substep of a rod task's evaluation batch: on
-    ``rod_check_scene``'s scene, the window of a hold at the tcp (K1) and
-    its first substep are formed as run_substeps_bm forms them, through the
-    wrappers. Returns the records for hold_kernel: K3 (timed; its register
-    variant on avoiding, its general variant on the other scenes) and K2."""
+    """K1, K2 and K3 on one real substep of a rod task's evaluation batch:
+    on ``rod_check_scene``'s scene, the window of a hold at the tcp (on
+    inserting a setpoint 1 cm further toward the wall) (K1) and its first
+    substep are formed as run_substeps_bm forms them, through the wrappers.
+    Returns the records for hold_kernel: K3 (timed; its register variant on
+    avoiding, its general variant on the other scenes), K2 and K1."""
     import torch
     from d3il_tpu_torch.control import cartesian
     from d3il_tpu_torch.engine import dyn_kernel, substep_bm
@@ -858,6 +930,10 @@ def rod_substep_kernels(spec, params, tols):
     cs = cartesian.init_state(sc.q[:, :7].clone())
     tcp, _ = params.tcp_pose(sc)
     hold = rod_hold_action(tcp)
+    if spec.name == "inserting":
+        # press 1 cm further toward the wall: a window whose IK moves (at
+        # the tcp itself K1's outputs are the rest posture's)
+        hold[:, 0] -= 0.01
     n = hold.shape[0]
     bm = lambda x: torch.movedim(x, 0, -1).contiguous()
     sb = substep_bm.scene_to_bm(sc)
@@ -867,7 +943,14 @@ def rod_substep_kernels(spec, params, tols):
     sw = torch.full((n,), 0.04, device=params.device)
     gf = torch.zeros(n, dtype=torch.bool, device=params.device)
     k2_in = (sb.q, sb.qd, k1_out[2][0], k1_out[3][0], k1_out[4][0], sw, gf)
-    return contact_records(spec, params, sb, k2_in, what, tols)
+    k1_in = (bm(cs.q_virt), bm(cs.old_des_vel), bm(hold[:, :3]),
+             bm(hold[:, 3:]))
+    k1 = dict(name=f"ik_window_b{n}_{spec.name}", key="K1", out=k1_out,
+              ins=k1_in, plain=lambda: dyn_kernel.ik_window_plain(
+                  st.ik, n_sub, *k1_in),
+              names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
+              tols=tols["K1"])
+    return contact_records(spec, params, sb, k2_in, what, tols) + (k1,)
 
 
 def contact_records(spec, params, sb, k2_in, what, tols):
@@ -940,98 +1023,114 @@ def profile_rod_step(spec, params, state, hold, card, top=False):
         top_device_time(dev)
 
 
-def rod_tasks(counters, tols, card):
-    """Phase 5: avoiding, aligning and sorting with 2, 4 and 6 boxes, each
-    through its Params() at full width, K3 held on a real substep of its
-    evaluation batch (avoiding: the register variant with no free body;
-    the others: the general variant), a gmm agent trained on its demos and
-    its Sim's rollout of 480 episodes (avoiding 1 x 480, the others 60 x 8)
-    in both modes. Returns the K3 records for the kernels line."""
+def rod_task(task, counters, tols, card, failed, problems):
+    """One rod task through its Params() at full width: K2 (on
+    ROD_K2_TASKS) and K3 held on a real substep of its evaluation batch
+    (avoiding: the register variant with no free body; the others: the
+    general variant), K1 too on inserting's, a gmm agent trained on its
+    demos and its Sim's rollout in both modes. Failures are appended to
+    ``failed`` (kernel holds) and ``problems``. Returns the K3 record for
+    the kernels line."""
     import torch
     import run_eval_torch
     import run_train_torch
     from d3il_tpu_torch import registry
-    rows, failed, problems = [], [], []
-    for task in ROD_TASKS:
-        spec = registry.TASKS[task]
-        workload = rod_workload(task)
-        n_eps = workload[0] * workload[1]
-        t0 = t_task = time.perf_counter()
-        params = spec.make_params(device="cuda")
-        torch.cuda.synchronize()
-        meta, n_sub = params.statics.meta, params.n_substeps
-        log(f"{task}: params {time.perf_counter() - t0:.1f} s; "
-            f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
-            f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
-            f"iterations; K3 {params.statics.contact.geometry}")
-        k3, k2 = rod_substep_kernels(spec, params, tols)
-        if task in ROD_K2_TASKS:
-            hold_kernel(k2, card, failed, timed=False)
-        hold_kernel(k3, card, failed)
-        log(f"{task} K3 ({k3['name']}) at B = {n_eps}: roofline share "
-            f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
-        if task == "avoiding":
-            rod = loaded_share(k3["out"][0], pair_rows(
-                params.scene, lambda p: p.geom_b.name == "l1_obs"))
-            log(f"avoiding: the rod-obstacle row carries force in "
-                f"{rod:.1%} of envs")
-            if rod < 0.99:
-                problems.append(f"avoiding: the rod-obstacle row carries "
-                                f"force in only {rod:.1%} of envs")
-        ckpt = os.path.join(ROOT, "build", "chip_smoke", f"{task}_gmm.pt")
-        targs = run_train_torch.make_args(
-            task=task, agent="gmm", device="cuda", skip_eval=True, ckpt=ckpt,
-            epochs=ROD_EPOCHS, data=os.path.join(ROOT, "data"))
-        row = run_train_torch.run_one(targs)
-        log(f"{task}: trained gmm for {targs.epochs} epochs (cut from "
-            f"{spec.train_kw['epochs']}) in {row['train_seconds']} s, final "
-            f"train loss {row['final_train_loss']} [{card}]")
-        _, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
-        settle = spec.env().SETTLE_SUBSTEPS
-        for mode, kin, T in (("dynamic", False, ROD_STEPS_DYNAMIC),
-                             ("kinematic", True, ROD_STEPS_KINEMATIC)):
-            state, dones, out, ln, secs, reset_s, w = eval_rollout(
-                spec, agent, params.q_init, kin, T, counters, card,
-                workload=workload)
-            k3["launches_eval_" + mode] = ln["K3"]
-            want = {"K1": T, "K2": 0 if kin else T * n_sub + settle,
-                    "K3": T * n_sub + settle, "K4": 0}
-            finite = bool(w.finite.item()) and all(
-                torch.isfinite(x).all().item() for x in leaves(state)
-                if x.is_floating_point())
-            frozen = bool((dones[1:] | ~dones[:-1]).all().item())
-            log(f"{task} ({mode}): {n_eps} episodes x {T} steps (horizon "
-                f"cut from {spec.max_steps}) in {secs:.2f} s = "
-                f"{n_eps * T / secs:.1f} episode-steps/s, after a reset of "
-                f"{reset_s:.2f} s ({settle} hold substeps); "
-                + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
-                + f"; max setpoint move per step {w.max_delta.item():.5f} m;"
-                f" all finite: {finite}; launches {ln} expected {want} "
-                f"[{card}]")
-            bad = []
-            if not finite:
-                bad.append("non-finite state")
-            if not frozen:
-                bad.append("done went back to false")
-            if w.max_delta.item() > 0.01 + 1e-6:
-                bad.append(f"setpoint moved {w.max_delta.item()} m in a step")
-            in01 = ("success_rate", "entropy") + (
-                () if task.startswith("sorting") else ("score",))
-            if not all(0.0 <= out[k] <= 1.0 for k in in01):
-                bad.append(f"metrics out of [0, 1]: {out}")
-            if "kl" in out and not out["kl"] >= -1e-6:
-                bad.append(f"negative KL: {out}")
-            if ln != want:
-                bad.append(f"launch counts {ln} != {want}")
-            problems += [f"{task} ({mode}): {b}" for b in bad]
-            if mode == "dynamic":
-                tcp, _ = params.tcp_pose(state.scene)
-                profile_rod_step(spec, params, state, rod_hold_action(tcp),
-                                 card, top=task == ROD_TASKS[-1])
-        rows.append(k3)
-        log(f"{task}: {time.perf_counter() - t_task:.1f} s in all")
-        if task not in ROD_REPEAT_TASKS:
-            continue
+    spec = registry.TASKS[task]
+    workload = rod_workload(task)
+    n_eps = workload[0] * workload[1]
+    t0 = t_task = time.perf_counter()
+    params = spec.make_params(device="cuda")
+    torch.cuda.synchronize()
+    meta, n_sub = params.statics.meta, params.n_substeps
+    geo = params.statics.contact.geometry
+    log(f"{task}: params {time.perf_counter() - t0:.1f} s; "
+        f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
+        f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
+        f"iterations; K3 {geo}")
+    k3, k2, k1 = rod_substep_kernels(spec, params, tols)
+    if task == "inserting":
+        hold_kernel(k1, card, failed, timed=False)
+    if task in ROD_K2_TASKS:
+        hold_kernel(k2, card, failed, timed=False)
+    hold_kernel(k3, card, failed)
+    log(f"{task} K3 ({k3['name']}) at B = {n_eps}: roofline share "
+        f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
+    if task == "inserting":
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = SM_SHARED_BYTES // (geo.smem_per_block
+                                     + BLOCK_RESERVED_BYTES)
+        blocks = -(-n_eps // geo.envs_per_block)
+        log(f"inserting K3 launch: {geo.smem_per_env} B of shared memory "
+            f"per env, {geo.smem_per_block} B per block, "
+            f"{geo.envs_per_block} env(s) per block, {per_sm} block(s) per "
+            f"SM on {n_sm} SMs: {blocks} blocks in "
+            f"{-(-blocks // (per_sm * n_sm))} waves")
+    loaded = {"avoiding": ("the rod-obstacle row",
+                           lambda p: p.geom_b.name == "l1_obs"),
+              "inserting": ("the red box-maze_9 row", is_box_wall)}
+    if task in loaded:
+        what, pick = loaded[task]
+        share = loaded_share(k3["out"][0], pair_rows(params.scene, pick))
+        log(f"{task}: {what} carries force in {share:.1%} of envs")
+        if share < 0.99:
+            problems.append(f"{task}: {what} carries force in only "
+                            f"{share:.1%} of envs")
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", f"{task}_gmm.pt")
+    epochs = INSERT_EPOCHS if task == "inserting" else ROD_EPOCHS
+    targs = run_train_torch.make_args(
+        task=task, agent="gmm", device="cuda", skip_eval=True, ckpt=ckpt,
+        epochs=epochs, data=os.path.join(ROOT, "data"))
+    row = run_train_torch.run_one(targs)
+    log(f"{task}: trained gmm for {targs.epochs} epochs (cut from "
+        f"{spec.train_kw['epochs']}) in {row['train_seconds']} s, final "
+        f"train loss {row['final_train_loss']} [{card}]")
+    _, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
+    settle = spec.env().SETTLE_SUBSTEPS
+    steps = ((INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC)
+             if task == "inserting"
+             else (ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC))
+    for mode, kin, T in (("dynamic", False, steps[0]),
+                         ("kinematic", True, steps[1])):
+        state, dones, out, ln, secs, reset_s, w = eval_rollout(
+            spec, agent, params.q_init, kin, T, counters, card,
+            workload=workload)
+        k3["launches_eval_" + mode] = ln["K3"]
+        want = {"K1": T, "K2": 0 if kin else T * n_sub + settle,
+                "K3": T * n_sub + settle, "K4": 0}
+        finite = bool(w.finite.item()) and all(
+            torch.isfinite(x).all().item() for x in leaves(state)
+            if x.is_floating_point())
+        frozen = bool((dones[1:] | ~dones[:-1]).all().item())
+        log(f"{task} ({mode}): {n_eps} episodes x {T} steps (horizon "
+            f"cut from {spec.max_steps}) in {secs:.2f} s = "
+            f"{n_eps * T / secs:.1f} episode-steps/s, after a reset of "
+            f"{reset_s:.2f} s ({settle} hold substeps); "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+            + f"; max setpoint move per step {w.max_delta.item():.5f} m;"
+            f" all finite: {finite}; launches {ln} expected {want} "
+            f"[{card}]")
+        bad = []
+        if not finite:
+            bad.append("non-finite state")
+        if not frozen:
+            bad.append("done went back to false")
+        if w.max_delta.item() > 0.01 + 1e-6:
+            bad.append(f"setpoint moved {w.max_delta.item()} m in a step")
+        in01 = ("success_rate", "entropy") + (
+            () if task.startswith("sorting") else ("score",))
+        if not all(0.0 <= out[k] <= 1.0 for k in in01):
+            bad.append(f"metrics out of [0, 1]: {out}")
+        if "kl" in out and not out["kl"] >= -1e-6:
+            bad.append(f"negative KL: {out}")
+        if ln != want:
+            bad.append(f"launch counts {ln} != {want}")
+        problems += [f"{task} ({mode}): {b}" for b in bad]
+        if mode == "dynamic":
+            tcp, _ = params.tcp_pose(state.scene)
+            profile_rod_step(spec, params, state, rod_hold_action(tcp),
+                             card, top=task in (ROD_TASKS[-1], "inserting"))
+    log(f"{task}: {time.perf_counter() - t_task:.1f} s in all")
+    if task in ROD_REPEAT_TASKS:
         bc, _ = registry.make_agent(
             "bc", torch.Generator(device="cuda").manual_seed(3), spec.obs_dim,
             spec.act_dim, agent.scaler)
@@ -1046,11 +1145,22 @@ def rod_tasks(counters, tols, card):
             f"identical: {same}")
         if not same:
             problems.append(f"{task}: the bc rollout does not repeat")
+    return k3
+
+
+def rod_tasks(counters, tols, card, tasks=ROD_TASKS):
+    """Phase 5 (avoiding, aligning and sorting with 2, 4 and 6 boxes: 480
+    episodes each, avoiding 1 x 480, the others 60 x 8) and phase 7
+    (inserting, 30 x 8): ``rod_task`` of each. Returns the K3 records for
+    the kernels line."""
+    rows, failed, problems = [], [], []
+    for task in tasks:
+        rows.append(rod_task(task, counters, tols, card, failed, problems))
     if failed:
-        raise SystemExit(f"rod tasks: kernels disagree with their plain "
-                         f"versions: {failed}")
+        raise SystemExit(f"{', '.join(tasks)}: kernels disagree with their "
+                         f"plain versions: {failed}")
     if problems:
-        raise SystemExit("rod tasks failed: " + "; ".join(problems))
+        raise SystemExit(f"{', '.join(tasks)} failed: " + "; ".join(problems))
     return rows
 
 
@@ -1194,6 +1304,88 @@ def stacking_task(counters, tols, card):
     if problems:
         raise SystemExit("stacking failed: " + "; ".join(problems))
     return k3
+
+
+class ActionWatch:
+    """An agent whose policy's actions are counted on the device (no host
+    sync): rows with every entry finite, and all rows."""
+
+    def __init__(self, agent):
+        self.agent, self.finite, self.total = agent, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.agent, name)
+
+    def policy_apply(self, generator):
+        apply = self.agent.policy_apply(generator)
+
+        def watched(params, carry, obs):
+            carry, act = apply(params, carry, obs)
+            self.finite = self.finite + act.isfinite().all(dim=1).sum()
+            self.total += act.shape[0]
+            return carry, act
+
+        return watched
+
+
+def agents_phase(counters, q_init, card):
+    """Phase 8: each agent of AGENTS at its registry defaults, trained on
+    data/pushing on the card (AGENT_EPOCHS epochs), saved and reloaded
+    through the entry points' functions, then PushingSim's reference
+    workload (30 x 16 = 480 episodes) rolled out AGENT_STEPS dynamic steps:
+    K1, K2 and K3's register variant under every policy. Checks: finite
+    actions and state, the metrics' range, the launch counts. Returns one
+    row per agent."""
+    import torch
+    import run_eval_torch
+    import run_train_torch
+    from d3il_tpu_torch import registry
+    spec = registry.TASKS["pushing"]
+    n_eps, T = EVAL_CONTEXTS * EVAL_TRAJS, AGENT_STEPS
+    rows, problems = [], []
+    for name in AGENTS:
+        ckpt = os.path.join(ROOT, "build", "chip_smoke", f"pushing_{name}.pt")
+        targs = run_train_torch.make_args(
+            task="pushing", agent=name, device="cuda", skip_eval=True,
+            ckpt=ckpt, epochs=AGENT_EPOCHS, data=os.path.join(ROOT, "data"))
+        row = run_train_torch.run_one(targs)
+        _, agent, meta = run_eval_torch.load_agent(ckpt, "cuda")
+        n_params = sum(v.numel() for v in agent.params.values())
+        watch = ActionWatch(agent)
+        state, dones, out, ln, secs, reset_s, w = eval_rollout(
+            spec, watch, q_init, False, T, counters, card)
+        finite_share = (watch.finite / watch.total).item()
+        want = {"K1": T, "K2": T * 35 + 2, "K3": T * 35 + 2, "K4": 0}
+        finite = bool(w.finite.item()) and all(
+            torch.isfinite(x).all().item() for x in leaves(state)
+            if x.is_floating_point())
+        log(f"agent {name}: {n_params} parameters (window "
+            f"{meta['window']}), trained {targs.epochs} epochs (cut from "
+            f"{spec.train_kw['epochs']}) in {row['train_seconds']} s, final "
+            f"train loss {row['final_train_loss']}; {n_eps} episodes x {T} "
+            f"dynamic steps in {secs:.2f} s = {n_eps * T / secs:.1f} "
+            f"episode-steps/s (reset {reset_s:.2f} s); finite actions "
+            f"{finite_share:.1%}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+            + f"; launches {ln} expected {want} [{card}]")
+        bad = []
+        if finite_share < 1.0 or not finite:
+            bad.append(f"non-finite actions ({finite_share:.1%} finite) or "
+                       f"state")
+        if not all(0.0 <= out[k] <= 1.0 for k in
+                   ("success_rate", "entropy", "score")):
+            bad.append(f"metrics out of [0, 1]: {out}")
+        if ln != want:
+            bad.append(f"launch counts {ln} != {want}")
+        problems += [f"agent {name}: {b}" for b in bad]
+        rows.append({"agent": name, "params": n_params,
+                     "train_seconds": row["train_seconds"],
+                     "episode_steps_per_s": n_eps * T / secs,
+                     "finite_actions": finite_share})
+    log(json.dumps({"agents": rows, "card": card}))
+    if problems:
+        raise SystemExit("agents failed: " + "; ".join(problems))
+    return rows
 
 
 def main(kernels_only=False):
@@ -1475,8 +1667,16 @@ def main(kernels_only=False):
     log(f"phase 6: {since()}")
     rod_rows.append(stacking_task(counters, tols, card))
 
-    # ---- phase 7: report --------------------------------------------------
+    # ---- phase 7: inserting -----------------------------------------------
     log(f"phase 7: {since()}")
+    rod_rows += rod_tasks(counters, tols, card, tasks=("inserting",))
+
+    # ---- phase 8: the agents ----------------------------------------------
+    log(f"phase 8: {since()}")
+    agents_phase(counters, params.q_init, card)
+
+    # ---- phase 9: report --------------------------------------------------
+    log(f"phase 9: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row

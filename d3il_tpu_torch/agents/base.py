@@ -187,3 +187,37 @@ def save_checkpoint(path: str, params: dict, extra: dict | None = None):
 def load_checkpoint(path: str, device=None):
     return torch.load(path, map_location=resolve_device(device),
                       weights_only=True)
+
+
+def gumbel(shape, generator: torch.Generator):
+    """Standard Gumbel draws -log(-log(u)), u uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+
+
+def draw_categorical(logits, generator: torch.Generator, g=None):
+    """One categorical draw per row of ``logits`` [..., K] -> [...] int64:
+    the argmax of logits plus standard Gumbel draws ``g`` (drawn from
+    ``generator`` unless given), the form of ``jax.random.categorical``."""
+    if g is None:
+        g = gumbel(logits.shape, generator)
+    return torch.argmax(logits + g, dim=-1)
+
+
+class _Bound(torch.nn.Module):
+    """``model.<method>`` as a module's forward, for functional_call."""
+
+    def __init__(self, model: torch.nn.Module, method: str):
+        super().__init__()
+        self.m, self.method = model, method
+
+    def forward(self, *args):
+        return getattr(self.m, self.method)(*args)
+
+
+def call_method(model: torch.nn.Module, params: dict, method: str, *args):
+    """``model.<method>(*args)`` with ``params`` in place of the model's
+    own parameters (Flax's ``apply(params, ..., method=)``)."""
+    return torch.func.functional_call(
+        _Bound(model, method), {"m." + k: v for k, v in params.items()},
+        args)

@@ -51,12 +51,6 @@ def gmm_log_prob(means, stds, logits, a):
     return torch.logsumexp(log_w + comp, dim=-1)
 
 
-def draw_component(logits, generator: torch.Generator):
-    """One categorical draw per row of logits [B, K] -> [B] int64."""
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                             generator=generator)[:, 0]
-
-
 def draw_normal(shape, generator: torch.Generator):
     return torch.randn(shape, generator=generator, device=generator.device)
 
@@ -110,7 +104,7 @@ class GMMAgent:
             window, filled = push_window(carry, obs, W)
             x = scaler.scale_input(window).reshape(window.shape[0], -1)
             means, stds, logits = functional_call(model, params, (x,))
-            comp = draw_component(logits, generator)
+            comp = base.draw_categorical(logits, generator)
             eps = draw_normal(means.shape[:1] + means.shape[-1:], generator)
             a = gmm_sample(means, stds, comp, eps, low_noise)
             act = scaler.inverse_scale_output(scaler.clip_action(a))

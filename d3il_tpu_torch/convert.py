@@ -97,20 +97,145 @@ def _residual_mlp(tree, prefix: str, out: dict, device) -> None:
     _dense(tree["Dense_1"], prefix + "out", out, device)
 
 
+def _layer_norm(tree, prefix: str, out: dict, device) -> None:
+    """Flax LayerNorm {scale, bias} -> nn.LayerNorm {weight, bias}."""
+    out[prefix + ".weight"] = torch.as_tensor(
+        np.array(tree["scale"], np.float32), device=device)
+    out[prefix + ".bias"] = torch.as_tensor(
+        np.array(tree["bias"], np.float32), device=device)
+
+
+def _param(x, name: str, out: dict, device) -> None:
+    out[name] = torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def _block(tree, prefix: str, out: dict, device) -> None:
+    """Flax transformer Block (LayerNorm_0, CausalSelfAttention_0/{Dense_0,
+    Dense_1}, LayerNorm_1, Dense_0, Dense_1) -> the port's Block (ln1,
+    attn.{qkv, proj}, ln2, fc, proj)."""
+    _layer_norm(tree["LayerNorm_0"], prefix + "ln1", out, device)
+    attn = tree["CausalSelfAttention_0"]
+    _dense(attn["Dense_0"], prefix + "attn.qkv", out, device)
+    _dense(attn["Dense_1"], prefix + "attn.proj", out, device)
+    _layer_norm(tree["LayerNorm_1"], prefix + "ln2", out, device)
+    _dense(tree["Dense_0"], prefix + "fc", out, device)
+    _dense(tree["Dense_1"], prefix + "proj", out, device)
+
+
+def _gpt(tree, prefix: str, out: dict, device) -> None:
+    """Flax GPT (Dense_0, pos_emb, Block_i, LayerNorm_0, Dense_1) -> the
+    port's GPT (inp, pos_emb, blocks.i, ln_f, head)."""
+    _dense(tree["Dense_0"], prefix + "inp", out, device)
+    _param(tree["pos_emb"], prefix + "pos_emb", out, device)
+    n = sum(k.startswith("Block_") for k in tree)
+    for i in range(n):
+        _block(tree[f"Block_{i}"], f"{prefix}blocks.{i}.", out, device)
+    _layer_norm(tree["LayerNorm_0"], prefix + "ln_f", out, device)
+    _dense(tree["Dense_1"], prefix + "head", out, device)
+
+
+def _time_embed(tree, prefix: str, out: dict, device) -> None:
+    _dense(tree["Dense_0"], prefix + "fc1", out, device)
+    _dense(tree["Dense_1"], prefix + "fc2", out, device)
+
+
+def _lstm_cell(tree, prefix: str, out: dict, device) -> None:
+    """Flax OptimizedLSTMCell (input kernels ii/if/ig/io, no bias; hidden
+    kernels and biases hi/hf/hg/ho) -> nn.LSTMCell's stacked [i, f, g, o]
+    weight_ih, weight_hh and bias_hh."""
+    cat = lambda names, key: np.concatenate(
+        [np.asarray(tree[n][key], np.float32).T for n in names], axis=0)
+    _param(cat(("ii", "if", "ig", "io"), "kernel"), prefix + "weight_ih",
+           out, device)
+    _param(cat(("hi", "hf", "hg", "ho"), "kernel"), prefix + "weight_hh",
+           out, device)
+    _param(np.concatenate([np.asarray(tree[n]["bias"], np.float32)
+                           for n in ("hi", "hf", "hg", "ho")]),
+           prefix + "bias_hh", out, device)
+
+
+def _indexed(tree, name: str):
+    """The Flax subtrees ``name_0``, ``name_1``, ... of a setup list."""
+    n = sum(k.startswith(name + "_") for k in tree)
+    return [tree[f"{name}_{i}"] for i in range(n)]
+
+
+def _gmm(tree, out, device):
+    _residual_mlp(tree["ResidualMLP_0"], "trunk.", out, device)
+    for i, head in enumerate(("means", "stds", "logits")):
+        _dense(tree[f"Dense_{i}"], head, out, device)
+
+
+def _bet_mlp(tree, out, device):
+    _residual_mlp(tree["ResidualMLP_0"], "trunk.", out, device)
+    _dense(tree["Dense_0"], "logits", out, device)
+    _dense(tree["Dense_1"], "offsets", out, device)
+
+
+def _act(tree, out, device):
+    for layer in ("state_in", "act_in", "z_head", "z_in", "out"):
+        _dense(tree[layer], layer, out, device)
+    for part in ("enc_blocks", "dec_blocks"):
+        for i, blk in enumerate(_indexed(tree, part)):
+            _block(blk, f"{part}.{i}.", out, device)
+    _param(tree["query"], "query", out, device)
+
+
+def _cvae(tree, out, device):
+    _residual_mlp(tree["enc"], "enc.", out, device)
+    _residual_mlp(tree["dec"], "dec.", out, device)
+    _dense(tree["mean_head"], "mean_head", out, device)
+    _dense(tree["logstd_head"], "logstd_head", out, device)
+
+
+def _lstm_gmm(tree, out, device):
+    for i, cell in enumerate(_indexed(tree, "cells")):
+        _lstm_cell(cell, f"cells.{i}.", out, device)
+    for layer in ("mid", "mean_head", "std_head", "logit_head"):
+        _dense(tree[layer], layer, out, device)
+
+
+def _ddpm(tree, out, device):
+    _time_embed(tree["TimeEmbed_0"], "temb.", out, device)
+    _residual_mlp(tree["ResidualMLP_0"], "mlp.", out, device)
+
+
+def _ddpm_encdec(tree, out, device):
+    for i, layer in enumerate(("s_in", "t_in", "a_in", "out")):
+        _dense(tree[f"Dense_{i}"], layer, out, device)
+    _time_embed(tree["TimeEmbed_0"], "temb.", out, device)
+    _param(tree["pos"], "pos", out, device)
+    for i, blk in enumerate(_indexed(tree, "Block")):
+        _block(blk, f"blocks.{i}.", out, device)
+
+
+# agent name -> (Flax parameter tree, out, device) writing the port's names
+_AGENT_TREES = {
+    "bc": lambda t, o, d: _residual_mlp(t, "", o, d),
+    "gmm": _gmm,
+    "gpt_bc": lambda t, o, d: _gpt(t, "", o, d),
+    "bet": lambda t, o, d: _gpt(t["GPT_0"], "gpt.", o, d),
+    "bet_mlp": _bet_mlp,
+    "act": _act,
+    "cvae": _cvae,
+    "lstm_gmm": _lstm_gmm,
+    "ibc": lambda t, o, d: _residual_mlp(t["ResidualMLP_0"], "mlp.", o, d),
+    "ddpm": _ddpm,
+    "ddpm_encdec": _ddpm_encdec,
+}
+PORTED_AGENTS = tuple(sorted(_AGENT_TREES))
+
+
 def agent_params_from_numpy(name: str, flax_params, device=None) -> dict:
-    """The JAX package's parameter tree of agent ``name`` ('bc' or 'gmm'),
-    as nested dicts of NumPy arrays, -> the port's ``agent.params``."""
+    """The JAX package's parameter tree of agent ``name`` (one of
+    ``PORTED_AGENTS``), as nested dicts of NumPy arrays, -> the port's
+    ``agent.params``."""
+    if name not in _AGENT_TREES:
+        raise KeyError(f"agent {name!r} is not ported; ported: "
+                       f"{list(PORTED_AGENTS)}")
     device = common.resolve_device(device)
-    tree = flax_params.get("params", flax_params)
     out: dict = {}
-    if name == "bc":
-        _residual_mlp(tree, "", out, device)
-    elif name == "gmm":
-        _residual_mlp(tree["ResidualMLP_0"], "trunk.", out, device)
-        for i, head in enumerate(("means", "stds", "logits")):
-            _dense(tree[f"Dense_{i}"], head, out, device)
-    else:
-        raise KeyError(f"agent {name!r} is not ported; ported: ['bc', 'gmm']")
+    _AGENT_TREES[name](flax_params.get("params", flax_params), out, device)
     return out
 
 

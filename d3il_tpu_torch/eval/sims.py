@@ -192,6 +192,39 @@ class AligningSim(_TaskSim):
 
 
 @dataclass
+class InsertingSim(_TaskSim):
+    """Mode = the order in which the boxes first reach their targets
+    (the reference's ids 1..6); scored by the pushing convention over the 6
+    orders. Default workload = 30 contexts x 8 trajs at a horizon of 400
+    steps, sampled from seed 2 (no context file is shipped for
+    inserting)."""
+    seed: int = 0
+    n_contexts: int = 30
+    n_trajectories_per_context: int = 8
+
+    def env(self):
+        from d3il_tpu_torch.envs import inserting
+        return inserting
+
+    def default_params(self):
+        return inserting_params(max_steps=400)
+
+    def contexts(self, params):
+        gen = torch.Generator(device=params.device).manual_seed(CONTEXT_SEED)
+        return self.env().sample_context(gen, self.n_contexts)
+
+    def obs_dim(self):
+        return 13       # des xy + robot xy + 3 x (box xy, tan yaw)
+
+    def score(self, state) -> dict:
+        modes = self.env().decode_mode(state.order, state.n_visited)
+        C, T = self.n_contexts, self.n_trajectories_per_context
+        return {k: float(v) for k, v in metrics.inserting_score(
+            state.success.to(torch.float32).reshape(C, T),
+            modes.reshape(C, T)).items()}
+
+
+@dataclass
 class SortingSim(_TaskSim):
     """Mode = bit-packed color order; score SR - KL against the demo mode
     prior (the generated demos' mode histogram when the task's data
@@ -309,6 +342,12 @@ def aligning_params(**kw):
     """The task's default params (35 substeps, 30 solver iterations)."""
     from d3il_tpu_torch.envs import aligning
     return aligning.AligningParams(**kw)
+
+
+def inserting_params(**kw):
+    """The task's default params (35 substeps, 25 solver iterations)."""
+    from d3il_tpu_torch.envs import inserting
+    return inserting.InsertingParams(**kw)
 
 
 def sorting_params(num_boxes: int, **kw):

@@ -4,7 +4,8 @@ Counterpart of ``d3il_tpu/registry.py``: every ported task maps to (env
 params, dataset assembly, eval sim) and every ported imitation method to a
 uniform constructor
 
-    make(generator, obs_dim, act_dim, scaler, **overrides)
+    make(generator, obs_dim, act_dim, scaler, train_actions_scaled,
+         **overrides)
 
 returning an agent exposing ``loss_fn() / policy_apply() / init_carry() /
 params`` (see d3il_tpu_torch/agents/*). Asking for a task or agent that is
@@ -73,7 +74,8 @@ def _sorting(n: int) -> TaskSpec:
 
 # Workloads follow the reference benchmark scripts: avoiding 480
 # trajectories (one empty context x 480), pushing 30 contexts x 16
-# trajectories, aligning and sorting 60 x 8, stacking 60 x 18. The rollout
+# trajectories, aligning and sorting 60 x 8, stacking 60 x 18, inserting
+# 30 x 8. The rollout
 # form (a planar or, for aligning, an xyz setpoint; stacking's joint
 # setpoint) is the task's Sim's (eval/sims.py).
 TASKS: dict[str, TaskSpec] = _Ported("task", {
@@ -96,6 +98,10 @@ TASKS: dict[str, TaskSpec] = _Ported("task", {
         ds.assemble_stacking, 20, 8, "StackingSim", 1000,
         train_kw={"epochs": 100, "n_contexts": 60, "n_trajs": 18,
                   "window": 5}),
+    "inserting": TaskSpec(
+        "inserting", "d3il_tpu_torch.envs.inserting", "InsertingParams",
+        ds.assemble_inserting, 13, 2, "InsertingSim", 2000,
+        train_kw={"epochs": 100, "n_contexts": 30, "n_trajs": 8}),
 })
 
 
@@ -105,23 +111,46 @@ class AgentSpec:
     module: str
     cls: str
     ema_decay: float | None = None   # EMA tracking during fit
+    needs_actions: bool = False      # k-means fit over all demo actions
     defaults: dict = field(default_factory=dict)
 
-    def make(self, generator, obs_dim, act_dim, scaler, **overrides):
+    def make(self, generator, obs_dim, act_dim, scaler,
+             train_actions_scaled=None, **overrides):
         cls = getattr(importlib.import_module(self.module), self.cls)
         kw = dict(self.defaults)
         kw.update(overrides)
+        if self.needs_actions:
+            return cls.create(generator, obs_dim, act_dim, scaler,
+                              train_actions_scaled, **kw)
         return cls.create(generator, obs_dim, act_dim, scaler, **kw)
 
 
 AGENTS: dict[str, AgentSpec] = _Ported("agent", {
     "bc": AgentSpec("bc", "d3il_tpu_torch.agents.bc", "BCAgent"),
+    "cvae": AgentSpec("cvae", "d3il_tpu_torch.agents.cvae", "CVAEAgent"),
     "gmm": AgentSpec("gmm", "d3il_tpu_torch.agents.gmm", "GMMAgent"),
+    "lstm_gmm": AgentSpec("lstm_gmm", "d3il_tpu_torch.agents.lstm_gmm",
+                          "LSTMGMMAgent"),
+    "ibc": AgentSpec("ibc", "d3il_tpu_torch.agents.ibc", "IBCAgent"),
+    "gpt_bc": AgentSpec("gpt_bc", "d3il_tpu_torch.agents.gpt_bc",
+                        "GPTBCAgent"),
+    "bet": AgentSpec("bet", "d3il_tpu_torch.agents.bet", "BeTAgent",
+                     needs_actions=True, defaults={"use_gpt": True}),
+    "bet_mlp": AgentSpec("bet_mlp", "d3il_tpu_torch.agents.bet", "BeTAgent",
+                         needs_actions=True, defaults={"use_gpt": False}),
+    "act": AgentSpec("act", "d3il_tpu_torch.agents.act", "ACTAgent"),
+    "ddpm": AgentSpec("ddpm", "d3il_tpu_torch.agents.ddpm", "DDPMAgent",
+                      ema_decay=0.995),
+    "ddpm_encdec": AgentSpec("ddpm_encdec",
+                             "d3il_tpu_torch.agents.ddpm_encdec",
+                             "DDPMEncDecAgent", ema_decay=0.995),
 })
 
 
 def make_agent(name: str, generator, obs_dim: int, act_dim: int, scaler,
-               **overrides):
+               train_actions_scaled=None, **overrides):
+    """(agent, ema_decay); ``train_actions_scaled`` [N, Da] (NumPy or a
+    tensor) feeds the agents whose spec ``needs_actions`` (BeT's bins)."""
     spec = AGENTS[name]
     return spec.make(generator, obs_dim, act_dim, scaler,
-                     **overrides), spec.ema_decay
+                     train_actions_scaled, **overrides), spec.ema_decay

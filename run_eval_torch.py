@@ -32,13 +32,19 @@ def load_agent(ckpt_path: str, device=None):
     meta = ck["meta"]
     scaler = Scaler(scale_data=bool(meta["scale_data"]), **ck["scaler"])
     spec = registry.TASKS[meta["task"]]
-    kw = run_train_torch.agent_kwargs(meta["agent"], int(meta["window"]),
-                                      int(meta["hidden"]),
-                                      int(meta["layers"]))
+    kw = run_train_torch.agent_kwargs(
+        meta["agent"], int(meta["window"]), int(meta["hidden"]),
+        int(meta["layers"]), int(meta.get("chunk", 8)),
+        int(meta.get("ddpm_steps", 16)))
+    centers = ck.get("centers")
     agent, _ = registry.make_agent(
         meta["agent"], torch.Generator(device=device).manual_seed(0),
-        spec.obs_dim, spec.act_dim, scaler, **kw)
+        spec.obs_dim, spec.act_dim, scaler, centers, **kw)
     agent.params = ck["params"]
+    if centers is not None:
+        # the stored bins verbatim: a k-means refit over them returns the
+        # same set in another order, which the trained heads do not match
+        agent.centers = centers
     return spec, agent, meta
 
 

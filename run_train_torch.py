@@ -35,13 +35,25 @@ from d3il_tpu_torch.envs.common import resolve_device  # noqa: E402
 from d3il_tpu_torch.utils import logging as run_logging  # noqa: E402
 
 
-def agent_kwargs(name: str, window: int, hidden: int, layers: int) -> dict:
+def agent_kwargs(name: str, window: int, hidden: int, layers: int,
+                 chunk: int = 8, ddpm_steps: int = 16) -> dict:
     """Per-agent constructor kwargs from the generic hyperparameters (shared
     by training and checkpoint-restore so run_eval_torch rebuilds
     identically)."""
     registry.AGENTS[name]      # raises for an agent that is not ported
-    return dict(window_size=window, hidden_dim=hidden,
-                num_hidden_layers=layers)
+    kw = dict(window_size=window)
+    if name in ("bc", "cvae", "gmm", "ibc", "ddpm"):
+        kw.update(hidden_dim=hidden, num_hidden_layers=layers)
+    if name in ("act", "ddpm_encdec"):
+        kw["chunk"] = chunk
+        if window != 1:
+            print(f"warning: --window {window} has no effect for {name} "
+                  "(single-obs chunk policies)")
+    if name in ("ddpm", "ddpm_encdec"):
+        kw["n_timesteps"] = ddpm_steps
+    if name == "gpt_bc":
+        kw["window_size"] = max(window, 5)
+    return kw
 
 
 def build_agent_and_data(args, generator):
@@ -69,9 +81,19 @@ def build_agent_and_data(args, generator):
     print(f"dataset: {len(train_files)} train eps, {train_data.n_windows} "
           f"windows, obs {obs_dim} act {act_dim}")
 
-    kw = agent_kwargs(args.agent, args.window, args.hidden, args.layers)
+    kw = agent_kwargs(args.agent, args.window, args.hidden, args.layers,
+                      args.chunk, args.ddpm_steps)
+    acts_scaled = None
+    if registry.AGENTS[args.agent].needs_actions:
+        acts_scaled = scaler.scale_output(torch.as_tensor(y, device=device))
     agent, ema = registry.make_agent(args.agent, generator, obs_dim, act_dim,
-                                     scaler, **kw)
+                                     scaler, acts_scaled, **kw)
+    # chunked and windowed agents train on wider windows
+    want_window = getattr(agent, "train_window", None) or agent.window_size
+    if want_window != args.window:
+        args.window = want_window
+        train_data = ds.rewindow(train_data, args.window)
+        val_data = ds.rewindow(val_data, args.window)
     return spec, agent, ema, train_data, val_data
 
 
@@ -127,10 +149,13 @@ def run_one(args) -> dict:
         extra = {"meta": {
             "task": args.task, "agent": args.agent, "seed": args.seed,
             "window": args.window, "hidden": args.hidden,
-            "layers": args.layers,
+            "layers": args.layers, "chunk": args.chunk,
+            "ddpm_steps": args.ddpm_steps,
             "scale_data": bool(agent.scaler.scale_data)},
             "scaler": {k: v for k, v in agent.scaler._asdict().items()
                        if k != "scale_data"}}
+        if hasattr(agent, "centers"):
+            extra["centers"] = agent.centers
         agent_base.save_checkpoint(args.ckpt, best, extra=extra)
         print("checkpoint saved:", args.ckpt)
 
@@ -159,6 +184,10 @@ def _parser():
     ap.add_argument("--window", type=int, default=1)
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="action chunk of act and ddpm_encdec")
+    ap.add_argument("--ddpm-steps", type=int, default=16,
+                    help="diffusion steps of ddpm and ddpm_encdec")
     ap.add_argument("--n-contexts", type=int, default=15)
     ap.add_argument("--n-trajs", type=int, default=4,
                     help="trajectories per context (avoiding: its one "

@@ -180,7 +180,7 @@ def test_gmm_policy_draws_from_the_generator():
     g = torch.Generator().manual_seed(7)
     means, stds, logits = torch.func.functional_call(
         agent.model, agent.params, (agent.scaler.scale_input(obs),))
-    comp = gmm.draw_component(logits, g)
+    comp = base.draw_categorical(logits, g)
     eps = gmm.draw_normal((5, ACT), g)
     want = agent.scaler.inverse_scale_output(agent.scaler.clip_action(
         gmm.gmm_sample(means, stds, comp, eps, True)))
@@ -317,13 +317,17 @@ def test_fit_lowers_the_loss():
 
 
 def test_registry_names_what_is_ported():
-    assert sorted(registry.TASKS) == ["aligning", "avoiding", "pushing",
-                                      "sorting_2", "sorting_4", "sorting_6",
-                                      "stacking"]
-    assert sorted(registry.AGENTS) == ["bc", "gmm"]
+    assert sorted(registry.TASKS) == ["aligning", "avoiding", "inserting",
+                                      "pushing", "sorting_2", "sorting_4",
+                                      "sorting_6", "stacking"]
+    assert sorted(registry.AGENTS) == ["act", "bc", "bet", "bet_mlp", "cvae",
+                                       "ddpm", "ddpm_encdec", "gmm", "gpt_bc",
+                                       "ibc", "lstm_gmm"]
     with pytest.raises(KeyError, match="ported.*pushing"):
-        registry.TASKS["inserting"]
-    with pytest.raises(KeyError, match="ported.*bc.*gmm"):
-        registry.make_agent("ddpm", None, OBS, ACT, None)
+        registry.TASKS["sorting_8"]
+    with pytest.raises(KeyError, match="ported.*bc.*ddpm.*gmm.*lstm_gmm"):
+        registry.make_agent("beso", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):
-        convert.agent_params_from_numpy("ddpm", {}, "cpu")
+        registry.make_agent("bc_vision", None, OBS, ACT, None)
+    with pytest.raises(KeyError, match="ported"):
+        convert.agent_params_from_numpy("beso", {}, "cpu")

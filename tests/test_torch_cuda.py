@@ -14,7 +14,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from chip_smoke import (avoiding_contact_posture,  # noqa: E402
-                        box_between_fingers)
+                        box_between_fingers, is_box_wall, pair_rows,
+                        rod_pressing_box)
 from d3il_tpu_torch.control import gains  # noqa: E402
 from d3il_tpu_torch.engine import (contact, contact_kernel, dyn_kernel,  # noqa: E402
                                    substep_bm)
@@ -446,3 +447,137 @@ def test_arm_stage_gripper_chain_grasp(cuda_device, B):
     for a, b, tol in zip(out, ref, (1e-5, 1e-5, 1e-5, 1e-5, 3e-4, 1e-3,
                                     1e-3)):
         assert _scaled_err(a, b) <= tol
+
+
+def _inserting_press_state(B):
+    """Inserting's params and a reset of B seeded contexts on the CPU, each
+    env's rod pressing its red box 1 mm into maze_9
+    (chip_smoke.rod_pressing_box), so the box-wall rows carry force."""
+    from d3il_tpu_torch.envs import inserting
+    params = inserting.InsertingParams(n_substeps=2, device="cpu",
+                                       q_init=Q_INIT)
+    state = inserting.reset(params, inserting.sample_context(
+        torch.Generator().manual_seed(15), B))
+    return params, rod_pressing_box(params, state.scene)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", BATCHES)
+def test_contact_kernel_inserting_box_wall(cuda_device, B):
+    """K3's general variant on inserting, the largest scene (78 pairs, 270
+    contacts, 810 rows, nv 27, nf 3; 207,288 B of shared memory per env,
+    one env per block), with the rod pressing the red box into a maze wall:
+    the box-wall rows carry force in every env; held to the plain version
+    at the tolerance above."""
+    params, sc = _inserting_press_state(B)
+    st = params.statics
+    assert (st.meta.ncon, st.meta.nv, st.meta.nf) == (270, 27, 3)
+    sb = substep_bm.scene_to_bm(sc)
+    arm = dyn_kernel.arm_stage_bm(st.arm, sb.q, sb.qd, sb.q[:7].contiguous(),
+                                  torch.zeros(7, B), torch.zeros(7, B),
+                                  torch.full((B,), 0.04),
+                                  torch.zeros(B, dtype=torch.bool))
+    args = substep_bm.contact_inputs(st, sb, arm)
+    f_ref, _ = contact_kernel.phase_plain(st.meta, *args)
+    rows = pair_rows(params.scene, is_box_wall)
+    assert (f_ref[rows].abs().amax(dim=(0, 1)) > 1e-3).all()
+    tables = _hold_contact(st.meta, args, cuda_device)
+    assert (tables.geometry.variant, tables.geometry.envs_per_block,
+            tables.geometry.smem_per_env) == (2, 1, 207288)
+
+
+AGENT_NAMES = ("gpt_bc", "bet", "bet_mlp", "act", "cvae", "lstm_gmm", "ibc",
+               "ddpm", "ddpm_encdec")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AGENT_NAMES)
+def test_agent_forward_on_the_card(cuda_device, name):
+    """Each agent of the slice at its registry defaults (full width) on the
+    card against the same weights on the CPU: the loss on a minibatch of 64
+    windows (1e-4 relative) and two policy steps of 33 episodes (1e-5
+    absolute on actions of ~5e-3), every draw made on the CPU and passed in
+    where the function takes draws. IBC's sampler picks by argmax among 64
+    samples, where float32 differences between the devices may pick
+    another: its energies are held instead (1e-4 relative), and its
+    actions to the sampler's bounds."""
+    from d3il_tpu_torch import registry
+    from d3il_tpu_torch.agents import base
+    from d3il_tpu_torch.data.scaler import Scaler
+    rng = np.random.default_rng(16)
+    OBS, ACT, n, B = 10, 2, 64, 33
+    x = rng.normal(size=(256, OBS)).astype(np.float32)
+    y = (0.005 * rng.normal(size=(256, ACT))).astype(np.float32)
+    scaler = Scaler.fit(x, y, device="cpu")
+    acts = scaler.scale_output(torch.from_numpy(y))
+    agent, _ = registry.make_agent(name, torch.Generator().manual_seed(0),
+                                   OBS, ACT, scaler, acts)
+    dev_agent, _ = registry.make_agent(
+        name, torch.Generator().manual_seed(0), OBS, ACT,
+        Scaler(*(t.to(cuda_device) if torch.is_tensor(t) else t
+                 for t in scaler)), acts)
+    dev_agent.params = {k: v.to(cuda_device) for k, v in agent.params.items()}
+    if hasattr(agent, "centers"):
+        dev_agent.centers = agent.centers.to(cuda_device)
+    W = getattr(agent, "train_window", None) or agent.window_size
+    obs = torch.from_numpy(rng.normal(size=(n, W, OBS)).astype(np.float32))
+    act = torch.from_numpy((0.005 * rng.normal(size=(n, W, ACT))).astype(
+        np.float32))
+    g = torch.Generator().manual_seed(1)
+    draws = {"act": {"eps": torch.randn(n, 32, generator=g)},
+             "cvae": {"eps": torch.randn(n, 32, generator=g)},
+             "ibc": {"neg": torch.rand(n, 8, ACT, generator=g)},
+             "ddpm": {"t": torch.randint(0, 16, (n,), generator=g),
+                      "eps": torch.randn(n, ACT, generator=g)},
+             "ddpm_encdec": {"t": torch.randint(0, 16, (n,), generator=g),
+                             "eps": torch.randn(n, 8, ACT, generator=g)},
+             }.get(name, {})
+    want = agent.loss_fn()(agent.params, obs, act, None, **draws)
+    got = dev_agent.loss_fn()(dev_agent.params, obs.to(cuda_device),
+                              act.to(cuda_device), None,
+                              **{k: v.to(cuda_device)
+                                 for k, v in draws.items()})
+    np.testing.assert_allclose(got.item(), want.item(), rtol=1e-4)
+    if name == "ibc":
+        from d3il_tpu_torch.agents import ibc
+        s = torch.from_numpy(rng.normal(size=(B, OBS)).astype(np.float32))
+        a = torch.from_numpy(rng.normal(size=(B, 64, ACT)).astype(np.float32))
+        e = ibc._energy(agent.model, agent.params, s, a)
+        de = ibc._energy(dev_agent.model, dev_agent.params,
+                         s.to(cuda_device), a.to(cuda_device))
+        np.testing.assert_allclose(de.cpu().numpy(), e.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        apply = dev_agent.policy_apply(
+            torch.Generator(device=cuda_device).manual_seed(2))
+        _, da = apply(dev_agent.params, dev_agent.init_carry(OBS, B),
+                      s.to(cuda_device))
+        lo, hi = (scaler.inverse_scale_output(b * 1.1)
+                  for b in scaler.y_bounds)
+        assert ((da.cpu() >= lo - 1e-6) & (da.cpu() <= hi + 1e-6)).all()
+        return
+
+    def policy_draws():
+        gum = lambda *shape: base.gumbel(shape, g)
+        return {"bet": lambda: gum(B, 64), "bet_mlp": lambda: gum(B, 64),
+                "cvae": lambda: torch.randn(B, 32, generator=g),
+                "lstm_gmm": lambda: (gum(B, 8),
+                                     torch.randn(B, ACT, generator=g)),
+                "ddpm": lambda: torch.randn(17, B, ACT, generator=g),
+                "ddpm_encdec": lambda: torch.randn(17, B, 8, ACT,
+                                                   generator=g),
+                }.get(name, lambda: None)()
+
+    to_dev = lambda d: tuple(to_dev(x) for x in d) if isinstance(d, tuple) \
+        else d.to(cuda_device)
+    apply, dev_apply = agent.policy_apply(None), dev_agent.policy_apply(None)
+    carry, dev_carry = agent.init_carry(OBS, B), dev_agent.init_carry(OBS, B)
+    for t in range(2):
+        o = torch.from_numpy(rng.normal(size=(B, OBS)).astype(np.float32))
+        d = policy_draws()
+        kw, dev_kw = ({}, {}) if d is None else ({"draws": d},
+                                                 {"draws": to_dev(d)})
+        carry, a = apply(agent.params, carry, o, **kw)
+        dev_carry, da = dev_apply(dev_agent.params, dev_carry,
+                                  o.to(cuda_device), **dev_kw)
+        np.testing.assert_allclose(da.cpu().numpy(), a.numpy(), atol=1e-5,
+                                   err_msg=f"step {t}")

@@ -108,15 +108,17 @@ Q_INIT_TASK = {
     "stacking": np.array([-8.73528734e-07, -4.12198342e-02, 7.97928294e-07,
                           -2.18946218e+00, 3.53404417e-08, 2.15303779e+00,
                           7.85398126e-01]),
+    "inserting": Q_INIT,    # pushing's start pose
 }
 
 
 def test_registry_lists_the_ported_tasks():
-    """Seven tasks, with the JAX registry's dims, horizons and workloads; a
-    task that is not ported raises the KeyError that names the ported."""
-    assert sorted(registry.TASKS) == ["aligning", "avoiding", "pushing",
-                                      "sorting_2", "sorting_4", "sorting_6",
-                                      "stacking"]
+    """All eight tasks, with the JAX registry's dims, horizons and
+    workloads; a task the registry lacks raises the KeyError that names the
+    ported."""
+    assert sorted(registry.TASKS) == ["aligning", "avoiding", "inserting",
+                                      "pushing", "sorting_2", "sorting_4",
+                                      "sorting_6", "stacking"]
     dims = {k: (t.obs_dim, t.act_dim, t.max_steps, t.sim_name)
             for k, t in registry.TASKS.items()}
     assert dims == {"avoiding": (4, 2, 250, "AvoidingSim"),
@@ -125,7 +127,8 @@ def test_registry_lists_the_ported_tasks():
                     "sorting_2": (10, 2, 700, "SortingSim"),
                     "sorting_4": (16, 2, 700, "SortingSim"),
                     "sorting_6": (22, 2, 700, "SortingSim"),
-                    "stacking": (20, 8, 1000, "StackingSim")}
+                    "stacking": (20, 8, 1000, "StackingSim"),
+                    "inserting": (13, 2, 2000, "InsertingSim")}
     for n in (2, 4, 6):
         spec = registry.TASKS[f"sorting_{n}"]
         assert spec.params_kw == {"num_boxes": n}
@@ -133,6 +136,8 @@ def test_registry_lists_the_ported_tasks():
     for k in ("aligning", "sorting_2"):
         assert registry.TASKS[k].train_kw == {"epochs": 100, "n_contexts": 60,
                                               "n_trajs": 8}
+    assert registry.TASKS["inserting"].train_kw == {
+        "epochs": 100, "n_contexts": 30, "n_trajs": 8}
     # avoiding: the reference's 480 trajectories from its one (empty)
     # context; stacking: 60 x 18 at the training window 5
     assert registry.TASKS["avoiding"].train_kw == {
@@ -140,11 +145,11 @@ def test_registry_lists_the_ported_tasks():
     assert registry.TASKS["stacking"].train_kw == {
         "epochs": 100, "n_contexts": 60, "n_trajs": 18, "window": 5}
     with pytest.raises(KeyError, match="not ported.*'stacking'"):
-        registry.TASKS["inserting"]
+        registry.TASKS["sorting_8"]
 
 
 @pytest.mark.parametrize("task", ["aligning", "sorting_4", "avoiding",
-                                  "stacking"])
+                                  "stacking", "inserting"])
 def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
     """run_train_torch trains a tiny gmm agent on the task's demonstrations
     for one epoch, saves it and evaluates it through the task's Sim (2
@@ -172,7 +177,8 @@ def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
     assert np.isfinite(row["final_train_loss"])
     assert 0.0 <= row["success_rate"] <= 1.0
     # sorting scores SR - KL against the demo prior, stacking per prefix,
-    # aligning reports the final distance to the target
+    # aligning reports the final distance to the target, inserting the
+    # pushing convention
     assert ("kl" in row) == task.startswith("sorting")
     assert ("kl_3" in row) == (task == "stacking")
     assert ("mean_distance" in row) == (task == "aligning")
@@ -186,7 +192,41 @@ def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
 
 def test_cli_rejects_what_is_not_ported():
     r = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--task",
-         "inserting", "--device", "cpu"], capture_output=True, text=True,
+        [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--agent",
+         "beso", "--device", "cpu"], capture_output=True, text=True,
         timeout=120)
     assert r.returncode != 0 and "invalid choice" in r.stderr
+
+
+@pytest.mark.parametrize("agent", ["bet_mlp", "ddpm"])
+def test_train_saves_and_reloads_agent(agent, small_task, tmp_path):
+    """A k-means agent (its bins saved beside the weights and restored in
+    their order) and a diffusion agent (EMA weights, its step count in the
+    checkpoint) trained for one epoch through run_train_torch at width 16,
+    then rebuilt by run_eval_torch.load_agent: the same weights, bins and
+    hyperparameters, and the same kinematic rollout of 2 x 1 episodes for 2
+    steps from one seed."""
+    ckpt = str(tmp_path / f"{agent}.pt")
+    args = run_train_torch.make_args(
+        task="pushing", agent=agent, device="cpu", epochs=1, hidden=16,
+        layers=2, ddpm_steps=4, skip_eval=True, ckpt=ckpt,
+        data=os.path.join(ROOT, "data"))
+    row = run_train_torch.run_one(args)
+    assert np.isfinite(row["final_train_loss"])
+    spec, loaded, meta = run_eval_torch.load_agent(ckpt, "cpu")
+    assert (meta["agent"], meta["hidden"], meta["ddpm_steps"]) == \
+        (agent, 16, 4)
+    saved = torch.load(ckpt, weights_only=True)
+    assert all(torch.equal(loaded.params[k], v)
+               for k, v in saved["params"].items())
+    if agent == "bet_mlp":
+        assert torch.equal(loaded.centers, saved["centers"])
+    else:
+        assert loaded.n_timesteps == 4
+    params = spec.make_params(kinematic=True, max_steps=2, device="cpu")
+    sim = sims.PushingSim(n_contexts=2, n_trajectories_per_context=1)
+    a, _ = sim.run_episodes(loaded, params)
+    _, again, _ = run_eval_torch.load_agent(ckpt, "cpu")
+    b, _ = sim.run_episodes(again, params)
+    assert torch.isfinite(a.scene.free_pos).all()
+    assert torch.equal(a.scene.free_pos, b.scene.free_pos)

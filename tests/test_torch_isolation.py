@@ -28,12 +28,16 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "envs.stacking", "control.joint_pd", "utils.logging",
              "data.scaler", "data.dataset",
              "agents.nets.mlp", "agents.bc",
-             "agents.gmm", "agents.base", "eval.metrics", "eval.contexts",
+             "agents.gmm", "agents.base", "envs.inserting",
+             "agents.nets.transformer", "agents.gpt_bc", "agents.bet",
+             "agents.act", "agents.cvae", "agents.lstm_gmm", "agents.ibc",
+             "agents.ddpm", "agents.ddpm_encdec", "eval.metrics",
+             "eval.contexts",
              "eval.rollout", "eval.sims", "registry", "convert"):
     assert "d3il_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
-assert len(names) >= 40, names
+assert len(names) >= 50, names
 print("ok", len(names))
 """
 

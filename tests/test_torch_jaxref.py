@@ -145,17 +145,17 @@ def np_tree(x):
     return jax.tree_util.tree_map(np.asarray, x)
 
 
-def check_rod_state(js, ps, fields, when, warm_tol=3e-4):
+def check_rod_state(js, ps, fields, when, warm_tol=3e-4, qd_tol=3e-4):
     """A rod task's state, port (``convert.state_to_numpy``) against JAX:
     the scene max-scaled to 3e-4 (tests/test_substep_bm.py:60-63; the
-    contact forces ``warm`` to ``warm_tol``), the controller's q_virt 1e-4
-    and old_des_vel 2e-3 absolute, and ``fields`` of the task's own state
-    exactly."""
+    contact forces ``warm`` to ``warm_tol``, the joint velocities ``qd`` to
+    ``qd_tol``), the controller's q_virt 1e-4 and old_des_vel 2e-3
+    absolute, and ``fields`` of the task's own state exactly."""
+    tols = {"warm": warm_tol, "qd": qd_tol}
     for name in ("q", "qd", "free_pos", "free_quat", "free_linvel",
                  "free_angvel", "warm"):
         assert_scaled(ps["scene"][name], getattr(js.scene, name),
-                      warm_tol if name == "warm" else 3e-4,
-                      f"{when} scene.{name}")
+                      tols.get(name, 3e-4), f"{when} scene.{name}")
     if "ctrl" in ps:    # stacking's joint controller keeps no IK state
         np.testing.assert_allclose(ps["ctrl"]["q_virt"], js.ctrl.q_virt,
                                    atol=1e-4, err_msg=f"{when} q_virt")

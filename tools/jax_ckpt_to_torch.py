@@ -30,19 +30,23 @@ def main():
     from d3il_tpu_torch.agents import base
     ck = jbase.load_checkpoint(args.src)
     m = ck["meta"]
-    if m["agent"] not in ("bc", "gmm"):
-        raise SystemExit(f"convert carries bc and gmm weights, not "
-                         f"{m['agent']}")
+    if m["agent"] not in convert.PORTED_AGENTS:
+        raise SystemExit(f"convert carries the weights of "
+                         f"{list(convert.PORTED_AGENTS)}, not {m['agent']}")
     params = convert.agent_params_from_numpy(
         str(m["agent"]), ck["params"], device="cpu")
     meta = {"task": str(m["task"]), "agent": str(m["agent"]),
             "seed": int(m["seed"]), "window": int(m["window"]),
             "hidden": int(m["hidden"]), "layers": int(m["layers"]),
+            "chunk": int(m["chunk"]), "ddpm_steps": int(m["ddpm_steps"]),
             "scale_data": bool(m["scale_data"])}
     scaler = {k: torch.as_tensor(np.array(v, np.float32))
               for k, v in ck["scaler"].items()}
-    base.save_checkpoint(args.dst, params, extra={"meta": meta,
-                                                  "scaler": scaler})
+    extra = {"meta": meta, "scaler": scaler}
+    if "centers" in ck:
+        extra["centers"] = torch.as_tensor(np.array(ck["centers"],
+                                                    np.float32))
+    base.save_checkpoint(args.dst, params, extra=extra)
     print(f"wrote {args.dst}: {meta}")
 
 
