@@ -94,17 +94,42 @@ Phases (each fatal on failure):
      INSERT_STEPS_KINEMATIC kinematic steps with phase 5's checks; one
      profiled dynamic step;
   8. the agents: each of AGENTS (gpt_bc, bet, bet_mlp, act, cvae, lstm_gmm,
-     ibc, ddpm, ddpm_encdec) at its registry defaults trained on the card
+     ibc, ddpm, ddpm_encdec, beso) at its registry defaults (beso with
+     pushing's agent_kw: the GPT backbone at window 5) trained on the card
      on data/pushing for AGENT_EPOCHS epochs, saved and reloaded through the
      entry points' functions, and rolled out AGENT_STEPS dynamic steps of
      PushingSim's 30 x 16 episodes (K1, K2 and K3's register variant under
      every policy); checks of finite actions and state, the metrics' range
      and the launch counts; prints train seconds, episode-steps/s and the
-     finite share of the actions, then one ``agents`` JSON line;
-  9. print the ``kernels`` JSON line (with ``design``, the PR whose design
+     finite share of the actions; then beso takes SAMPLER_STEPS dynamic
+     step of the 480 episodes under each of its 14 samplers (finite actions
+     and state, launch counts; the denoiser's calls counted by a wrapper
+     here, which gives dpm_adaptive's loop iterations and whether it
+     reached its 64-iteration fuse); one ``agents`` JSON line;
+  9. demo generation: each runner family of data/experts.py in gen_demos'
+     default mode on the Params() phases 3 and 5-7 built (avoiding,
+     pushing, aligning, sorting_2 and inserting kinematic, stacking and
+     pushing again under full dynamics), DEMO_N = 60 contexts from the
+     port's sample_context, 4 steps (inserting 2) in chunks of 2 through
+     run_chunked, every tenth env marked done from the start; checks of
+     finite state and logs, the marked envs frozen in every leaf, the rod
+     tasks' setpoint moves within +-0.011 m per axis, the launch counts (K1
+     = steps but on stacking, K2 = substeps x steps + the reset's hold
+     substeps under full dynamics and 0 kinematic, K3 = substeps x steps +
+     the reset's hold substeps), every env's logs written as episodes by
+     gen_demos.write under build/chip_smoke/demos/<task> and loaded back by
+     the dataset loader and the task's assemble at the spec's dims; then
+     one more step from the run's end, instrumented: each expert call timed
+     alone between CUDA synchronizes, and the inputs of K1-K3's last calls
+     kept, on which each kernel the case launches is held against its
+     plain version (K1 on DEMO_K1_CASE, K2 under full dynamics, K3 on
+     all) at the tolerances of phase 2; prints episode-steps/s (of the
+     uninstrumented run), the expert step's share of the instrumented step
+     and the launches, then one ``demos`` JSON line;
+ 10. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
-     and one K3 row per scene of phases 5-7), the card line, and last
-     {"ok": true, "device": {...}}.
+     ``launches_demos``, and one K3 row per scene of phases 5-7), the card
+     line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -118,7 +143,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8192
 HOLD_STEPS = PUSH_STEPS = 10
 EVAL_CONTEXTS, EVAL_TRAJS = 30, 16      # the reference workload: 480 episodes
-EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 30, 10    # of the task's 400
+EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 10, 4     # of the task's 400
 REPEAT_STEPS = 5                        # bc determinism rollouts (kinematic)
 ROLLOUT_CHECK_STEPS = 6     # push steps before the B = 480 substep checks
 ROD_TASKS = ("avoiding", "aligning", "sorting_2", "sorting_4", "sorting_6")
@@ -127,7 +152,7 @@ ROD_WORKLOADS = {"avoiding": (1, 480),  # no context: one empty context
                  "inserting": (30, 8)}
 ROD_CONTEXTS, ROD_TRAJS = 60, 8         # the others
 ROD_EPOCHS = 5                          # of the registry's 100
-ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 4, 2   # of 400 (aligning), 700
+ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 2, 2   # of 400 (aligning), 700
 # hold substeps from a reset's initial scene before the B = 480 substep
 # checks, where the contacts carry force: aligning's tray has fallen the
 # 9 mm onto the table, sorting's boxes are still inside the platform
@@ -141,15 +166,32 @@ ROD_K2_TASKS = ("avoiding", "aligning", "sorting_2", "inserting")
 ROD_REPEAT_STEPS = 1
 STACK_CONTEXTS, STACK_TRAJS = 60, 18    # stacking's reference workload: 1,080
 STACK_EPOCHS = 5                        # of the registry's 100
-STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 4, 2   # of 1,000
+STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 2, 2   # of 1,000
 INSERT_EPOCHS = 5                       # of the registry's 100
-INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 4, 2  # of InsertingSim's 400
+INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 2, 2  # of InsertingSim's 400
 # the agents driven on the pushing evaluation path at their registry
 # defaults, beside gmm (phase 4)
 AGENTS = ("gpt_bc", "bet", "bet_mlp", "act", "cvae", "lstm_gmm", "ibc",
-          "ddpm", "ddpm_encdec")
+          "ddpm", "ddpm_encdec", "beso")
 AGENT_EPOCHS = 2                        # of the registry's 100
-AGENT_STEPS = 4                         # dynamic steps of PushingSim's 400
+AGENT_STEPS = 2                         # dynamic steps of PushingSim's 400
+SAMPLER_STEPS = 1       # dynamic steps of the 480 episodes per beso sampler
+# demo generation (phase 9): each runner family in gen_demos' default mode
+# (stacking and the second pushing case under full dynamics), B = 60 (--n's
+# default), a cut horizon in chunks of DEMO_CHUNK steps; every
+# DEMO_FROZEN_EVERY-th env starts marked done, to be held frozen
+DEMO_N = 60
+DEMO_CASES = (("avoiding", True, 4), ("pushing", True, 4),
+              ("aligning", True, 4), ("sorting_2", True, 4),
+              ("inserting", True, 2), ("stacking", False, 4),
+              ("pushing", False, 4))
+DEMO_CHUNK = 2
+DEMO_FROZEN_EVERY = 10
+# K1's plain version is a host loop of ~6 s at any batch: K1 is held on the
+# demo inputs of one case (K2 and K3 on every case that launches them)
+DEMO_K1_CASE = ("pushing", False)
+# the Params() each scene's phase built (3, 5-7), reused by the demo phase
+SCENE_PARAMS = {}
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
@@ -1039,7 +1081,7 @@ def rod_task(task, counters, tols, card, failed, problems):
     workload = rod_workload(task)
     n_eps = workload[0] * workload[1]
     t0 = t_task = time.perf_counter()
-    params = spec.make_params(device="cuda")
+    params = SCENE_PARAMS[task] = spec.make_params(device="cuda")
     torch.cuda.synchronize()
     meta, n_sub = params.statics.meta, params.n_substeps
     geo = params.statics.contact.geometry
@@ -1223,7 +1265,7 @@ def stacking_task(counters, tols, card):
     failed, problems = [], []
     n_eps = STACK_CONTEXTS * STACK_TRAJS
     t0 = time.perf_counter()
-    params = spec.make_params(device="cuda")
+    params = SCENE_PARAMS["stacking"] = spec.make_params(device="cuda")
     torch.cuda.synchronize()
     meta, n_sub = params.statics.meta, params.n_substeps
     log(f"stacking: params {time.perf_counter() - t0:.1f} s; "
@@ -1382,10 +1424,305 @@ def agents_phase(counters, q_init, card):
                      "train_seconds": row["train_seconds"],
                      "episode_steps_per_s": n_eps * T / secs,
                      "finite_actions": finite_share})
+        if name == "beso":
+            log(f"agent beso: backbone {agent.backbone}, window "
+                f"{agent.window_size}, agent_extra {meta['agent_extra']}")
+            if (agent.backbone, agent.window_size) != ("gpt", 5):
+                problems.append("agent beso: not pushing's GPT at window 5")
+            rows[-1]["samplers"] = beso_samplers(spec, agent, counters,
+                                                 q_init, card)
     log(json.dumps({"agents": rows, "card": card}))
     if problems:
         raise SystemExit("agents failed: " + "; ".join(problems))
     return rows
+
+def beso_samplers(spec, agent, counters, q_init, card):
+    """One dynamic step (SAMPLER_STEPS) of PushingSim's 480 episodes with
+    beso under each of its 14 samplers. Checks: finite actions and state,
+    the launch counts. The denoiser's calls are counted here (a wrapper of
+    ``beso.edm_denoise``): dpm_adaptive's batch loop runs 4 calls per
+    iteration and 1 after, which gives its iterations and whether it
+    reached the 64-iteration fuse. Returns one row per sampler."""
+    import torch
+    from d3il_tpu_torch.agents import beso
+    T, n_eps = SAMPLER_STEPS, EVAL_CONTEXTS * EVAL_TRAJS
+    calls = [0]
+    plain = beso.edm_denoise
+
+    def counted(*args):
+        calls[0] += 1
+        return plain(*args)
+
+    rows, problems = [], []
+    beso.edm_denoise = counted
+    try:
+        for name in beso.SAMPLERS:
+            agent.sampler = name
+            watch = ActionWatch(agent)
+            calls[0] = 0
+            state, _, _, ln, secs, _, w = eval_rollout(
+                spec, watch, q_init, False, T, counters, card)
+            share = (watch.finite / watch.total).item()
+            finite = bool(w.finite.item()) and all(
+                torch.isfinite(x).all().item() for x in leaves(state)
+                if x.is_floating_point())
+            want = {"K1": T, "K2": T * 35 + 2, "K3": T * 35 + 2, "K4": 0}
+            row = {"sampler": name, "denoiser_calls": calls[0],
+                   "seconds": secs, "finite_actions": share}
+            more = ""
+            if name == "dpm_adaptive":
+                iters = (calls[0] // T - 1) / 4
+                row.update(loop_iterations=iters, fuse_reached=iters >= 64)
+                more = (f"; the batch loop ran {iters:g} iterations per "
+                        f"step, fuse (64) reached: {iters >= 64}")
+            log(f"beso sampler {name}: {n_eps} episodes x {T} dynamic "
+                f"step(s) in {secs:.2f} s, {calls[0]} denoiser calls, "
+                f"finite actions {share:.1%}, state finite {finite}; "
+                f"launches {ln} expected {want}{more} [{card}]")
+            if share < 1.0 or not finite:
+                problems.append(f"{name}: non-finite actions or state")
+            if ln != want:
+                problems.append(f"{name}: launch counts {ln} != {want}")
+            rows.append(row)
+    finally:
+        beso.edm_denoise = plain
+        agent.sampler = "euler_ancestral"
+    if problems:
+        raise SystemExit("beso samplers failed: " + "; ".join(problems))
+    return rows
+
+
+class TimedExperts:
+    """The expert steps of data/experts.py wrapped for the demo phase's
+    second pass: each call timed alone on the host clock with a CUDA
+    synchronize before and after it (seconds summed in ``seconds``)."""
+
+    NAMES = ("avoiding_expert_step", "pushing_expert_step",
+             "sorting_expert_step", "inserting_expert_step",
+             "aligning_expert_step", "stacking_expert_step")
+
+    def __init__(self, module):
+        self.module, self.seconds = module, 0.0
+        self.plain = {n: getattr(module, n) for n in self.NAMES}
+
+    def __enter__(self):
+        import torch
+
+        def timed(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                return out
+            return run
+        for n, fn in self.plain.items():
+            setattr(self.module, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.plain.items():
+            setattr(self.module, n, fn)
+
+
+class KernelInputs:
+    """The demo phase's second pass: engine/substep_bm.py's references to
+    engine/dyn_kernel.py and engine/contact_kernel.py replaced by views
+    that keep the arguments of K1-K3's last calls in ``args`` and call the
+    wrappers, which count their launches as always."""
+
+    WRAPPERS = {"ik_window_bm": "K1", "arm_stage_bm": "K2",
+                "phase_batched_bm": "K3"}
+
+    class View:
+        def __init__(self, module, args):
+            self.module, self.args = module, args
+
+        def __getattr__(self, name):
+            fn = getattr(self.module, name)
+            key = KernelInputs.WRAPPERS.get(name)
+            if key is None:
+                return fn
+
+            def keep(*args):
+                self.args[key] = args
+                return fn(*args)
+            return keep
+
+    def __enter__(self):
+        from d3il_tpu_torch.engine import substep_bm
+        self.args = {}
+        self.saved = (substep_bm.dyn_kernel, substep_bm.contact_kernel)
+        substep_bm.dyn_kernel = self.View(self.saved[0], self.args)
+        substep_bm.contact_kernel = self.View(self.saved[1], self.args)
+        return self
+
+    def __exit__(self, *exc):
+        from d3il_tpu_torch.engine import substep_bm
+        substep_bm.dyn_kernel, substep_bm.contact_kernel = self.saved
+
+
+def demo_kernel_records(args, label, tols, with_k1):
+    """K1 (``with_k1``), K2 and K3 held on the inputs of their last call in
+    a demo step (``args`` from KernelInputs), where the step launched them:
+    each wrapper called again on them against its plain version. Returns
+    the records for hold_kernel."""
+    import torch
+    from d3il_tpu_torch.engine import contact_kernel, dyn_kernel
+    recs = []
+    if with_k1 and "K1" in args:
+        a = args["K1"]
+        recs.append(dict(
+            name=f"ik_window_b{a[2].shape[-1]}_demos_{label}", key="K1",
+            out=dyn_kernel.ik_window_bm(*a),
+            plain=lambda a=a: dyn_kernel.ik_window_plain(*a),
+            names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
+            tols=tols["K1"]))
+    if "K2" in args:
+        a = args["K2"]
+        recs.append(dict(
+            name=f"arm_stage_b{a[1].shape[-1]}_demos_{label}", key="K2",
+            out=dyn_kernel.arm_stage_bm(*a),
+            plain=lambda a=a: dyn_kernel.arm_stage_plain(
+                *a[:7], a[7].to(torch.float32)),
+            names=("xpos", "xquat", "axes", "anchors", "Minv", "qd_pre",
+                   "a_arm"), tols=tols["K2"]))
+    a = args["K3"]
+    recs.append(dict(
+        name=f"contact_phase_b{a[3].shape[-1]}_demos_{label}", key="K3",
+        out=contact_kernel.phase_batched_bm(*a),
+        plain=lambda a=a: contact_kernel.phase_plain(a[0].meta, *a[1:]),
+        names=("f", "qfrc"), tols=tols["K3"]))
+    return recs
+
+
+def demo_case(task, kinematic, T, counters, tols, card):
+    """One runner family of demo generation on the Params() its scene's
+    phase built: DEMO_N contexts from the port's sample_context, the
+    choices of gen_demos, T steps in chunks of DEMO_CHUNK through
+    run_chunked; every DEMO_FROZEN_EVERY-th env starts marked done. Checks:
+    finite state and logs, the marked envs frozen in every leaf of the env
+    and expert state, the rod tasks' setpoint moves within +-0.011 m per
+    axis and step, the launch counts, and every env's logs written as
+    episodes (success ignored), loaded back with the dataset loader and the
+    task's assemble at the spec's dims. The rate is that run's, with no
+    instrumentation. A second pass of one step from its end times each
+    expert call alone (the expert's share) and keeps the inputs of K1-K3's
+    last calls, on which each kernel is then held against its plain
+    version. Returns the case's row and its problems."""
+    import copy
+    import numpy as np
+    import torch
+    from d3il_tpu_torch import registry
+    from d3il_tpu_torch.data import dataset as ds
+    from d3il_tpu_torch.data import experts, gen_demos
+    spec = registry.TASKS[task]
+    params = copy.copy(SCENE_PARAMS[task])
+    params.kinematic = kinematic
+    dev, n, n_sub = params.device, DEMO_N, params.n_substeps
+    settle = getattr(spec.env(), "SETTLE_SUBSTEPS", 2)
+    label = task + ("" if kinematic else " dynamic")
+    ctx = gen_demos.sample_contexts(task, n, 0, dev)
+    extras = gen_demos.plan(task, tuple(c.cpu().numpy() for c in ctx), n, 0)
+    init, chunk = gen_demos.make_runner(
+        task, params, DEMO_CHUNK,
+        torch.Generator(device=dev).manual_seed(1000))
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    carry0 = init(*gen_demos.init_args(task, ctx, extras))
+    frozen = torch.arange(n, device=dev) % DEMO_FROZEN_EVERY == 0
+    carry0 = carry0._replace(done=frozen.clone())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    carry, logs, dones = experts.run_chunked(chunk, carry0, T, DEMO_CHUNK)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ln = {k: fn.launches for k, fn in counters.items()}
+    want = {"K1": 0 if task == "stacking" else T,
+            "K2": 0 if kinematic else T * n_sub + settle,
+            "K3": T * n_sub + settle, "K4": 0}
+    state_leaves = leaves((carry.env, carry.es))
+    finite = all(torch.isfinite(x).all().item() for x in state_leaves
+                 if x.is_floating_point()) and all(
+        np.isfinite(x).all() for x in logs)
+    held = all(torch.equal(a[frozen], b[frozen]) for a, b in
+               zip(state_leaves, leaves((carry0.env, carry0.es))))
+    moved = np.abs(np.diff(logs[0], axis=1)).max() if task != "stacking" \
+        else 0.0
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "demos",
+                           task + ("" if kinematic else "_dynamic"))
+    all_dir = os.path.join(out_dir, "all_data")
+    os.makedirs(all_dir, exist_ok=True)
+    files = gen_demos.write(task, all_dir, logs, dones, carry.env, extras,
+                            keep_failed=True)
+    train, _ = gen_demos.write_split(out_dir, files, 0)
+    data = ds.load_task_dataset(all_dir, train, spec.assemble,
+                                spec.max_steps, 1, device=dev)
+    x, y = ds.all_valid(data)
+    # second pass: one more step from the run's end, instrumented
+    _, step1 = gen_demos.make_runner(
+        task, params, 1, torch.Generator(device=dev).manual_seed(1001))
+    with TimedExperts(experts) as timer, KernelInputs() as seen:
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        experts.run_chunked(step1, carry, 1, 1)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    failed = []
+    kerr = {}
+    for k in demo_kernel_records(seen.args, label.replace(" ", "_"), tols,
+                                 (task, kinematic) == DEMO_K1_CASE):
+        hold_kernel(k, card, failed, timed=False)
+        kerr[k["key"]] = k["max_abs_err"]
+    steps_s, share = t2 - t1, timer.seconds / (t4 - t3)
+    row = {"task": task, "kinematic": kinematic, "episodes": n, "steps": T,
+           "reset_seconds": t1 - t0, "step_seconds": steps_s,
+           "episode_steps_per_s": n * T / steps_s,
+           "expert_share": share, "launches": ln,
+           "episodes_written": len(files), "kernel_max_abs_err": kerr}
+    log(f"demos {label}: {n} episodes x {T} steps (chunks of {DEMO_CHUNK}) "
+        f"in {steps_s:.2f} s = {n * T / steps_s:.1f} episode-steps/s after "
+        f"a reset of {t1 - t0:.2f} s ({settle} hold substeps); one more "
+        f"step, instrumented, {t4 - t3:.3f} s, the expert step timed alone "
+        f"{timer.seconds:.3f} s = {share:.1%} of it; max setpoint move "
+        f"per step {moved:.5f} m; {len(files)} episodes written, "
+        f"{len(train)} loaded for training as obs {x.shape[-1]} act "
+        f"{y.shape[-1]}; finite {finite}; marked envs frozen {held}; "
+        f"launches {ln} expected {want}; kernels held on the step's last "
+        f"inputs {sorted(kerr)} [{card}]")
+    bad = [f"{f} disagrees with its plain version" for f in failed]
+    if not finite:
+        bad.append("non-finite state or logs")
+    if not held:
+        bad.append("an env marked done moved")
+    if moved > 0.011 + 1e-6:
+        bad.append(f"setpoint moved {moved} m in one step")
+    if ln != want:
+        bad.append(f"launch counts {ln} != {want}")
+    if len(files) != n:
+        bad.append(f"{len(files)} episodes written of {n}")
+    if (x.shape[-1], y.shape[-1]) != (spec.obs_dim, spec.act_dim):
+        bad.append(f"dataset dims ({x.shape[-1]}, {y.shape[-1]}) != "
+                   f"({spec.obs_dim}, {spec.act_dim})")
+    return row, [f"demos {label}: {b}" for b in bad]
+
+
+def demos_phase(counters, tols, card):
+    """Phase 9: ``demo_case`` of each of DEMO_CASES. Returns the rows and
+    the launches of every kernel summed over the cases."""
+    rows, problems = [], []
+    for task, kinematic, T in DEMO_CASES:
+        row, bad = demo_case(task, kinematic, T, counters, tols, card)
+        rows.append(row)
+        problems += bad
+    log(json.dumps({"demos": rows, "card": card}))
+    if problems:
+        raise SystemExit("demo generation failed: " + "; ".join(problems))
+    total = {k: sum(r["launches"][k] for r in rows) for k in counters}
+    return rows, total
 
 
 def main(kernels_only=False):
@@ -1422,6 +1759,7 @@ def main(kernels_only=False):
     log(f"phase 2: {since()}")
     t0 = time.perf_counter()
     params = pushing.PushingParams()            # 35 substeps, 25 iterations
+    SCENE_PARAMS["pushing"] = params
     torch.cuda.synchronize()
     log(f"params: {time.perf_counter() - t0:.1f} s (offline IK + null-space "
         f"convergence), q_init {params.q_init.round(4).tolist()}")
@@ -1675,22 +2013,32 @@ def main(kernels_only=False):
     log(f"phase 8: {since()}")
     agents_phase(counters, params.q_init, card)
 
-    # ---- phase 9: report --------------------------------------------------
+    # ---- phase 9: demo generation ------------------------------------------
     log(f"phase 9: {since()}")
+    demo_rows, demo_launches = demos_phase(counters, tols, card)
+    # a scene's K3 row: the K3 launches of its own demo cases
+    scene_demos = lambda name: sum(r["launches"]["K3"] for r in demo_rows
+                                   if name.endswith("_" + r["task"]))
+
+    # ---- phase 10: report -------------------------------------------------
+    log(f"phase 10: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row
-    # its own dynamic rollout's count
+    # its own dynamic rollout's count; ``launches_demos`` the demo phase's
+    # (summed over its cases)
     print(json.dumps({"kernels": [
         line(kk, launches=launches[kk["key"]] or window_launches[kk["key"]],
              launches_path=launches[kk["key"]],
              launches_window_check=window_launches[kk["key"]],
              launches_eval_dynamic=eval_launches["dynamic"][kk["key"]],
-             launches_eval_kinematic=eval_launches["kinematic"][kk["key"]])
+             launches_eval_kinematic=eval_launches["kinematic"][kk["key"]],
+             launches_demos=demo_launches[kk["key"]])
         for kk in kernels if kk.get("report", True)] + [
         line(kk, launches=kk["launches_eval_dynamic"],
              launches_eval_dynamic=kk["launches_eval_dynamic"],
-             launches_eval_kinematic=kk["launches_eval_kinematic"])
+             launches_eval_kinematic=kk["launches_eval_kinematic"],
+             launches_demos=scene_demos(kk["name"]))
         for kk in rod_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -209,6 +209,21 @@ def _ddpm_encdec(tree, out, device):
         _block(blk, f"blocks.{i}.", out, device)
 
 
+def _beso(tree, out, device):
+    """ScoreMLP (TimeEmbed_0, ResidualMLP_0) or ScoreGPT (Dense_0 the
+    sigma embedding, pos_emb, Dense_1 / Dense_2 the state and action
+    embeddings, Block_i, LayerNorm_0, Dense_3 / Dense_4 the head)."""
+    if "pos_emb" not in tree:
+        _ddpm(tree, out, device)
+        return
+    for i, layer in enumerate(("t_in", "s_in", "a_in", "hid", "out")):
+        _dense(tree[f"Dense_{i}"], layer, out, device)
+    _param(tree["pos_emb"], "pos_emb", out, device)
+    for i, blk in enumerate(_indexed(tree, "Block")):
+        _block(blk, f"blocks.{i}.", out, device)
+    _layer_norm(tree["LayerNorm_0"], "ln_f", out, device)
+
+
 # agent name -> (Flax parameter tree, out, device) writing the port's names
 _AGENT_TREES = {
     "bc": lambda t, o, d: _residual_mlp(t, "", o, d),
@@ -222,6 +237,7 @@ _AGENT_TREES = {
     "ibc": lambda t, o, d: _residual_mlp(t["ResidualMLP_0"], "mlp.", o, d),
     "ddpm": _ddpm,
     "ddpm_encdec": _ddpm_encdec,
+    "beso": _beso,
 }
 PORTED_AGENTS = tuple(sorted(_AGENT_TREES))
 

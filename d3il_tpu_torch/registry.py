@@ -35,6 +35,9 @@ class TaskSpec:
     # tuned per-task training/eval defaults, applied by
     # run_train_torch.make_args before explicit overrides
     train_kw: dict = field(default_factory=dict)
+    # per-(task, agent) constructor overrides, merged over the CLI's agent
+    # kwargs and saved in the checkpoint as ``agent_extra``
+    agent_kw: dict = field(default_factory=dict)
 
     def env(self):
         return importlib.import_module(self.env_module)
@@ -83,11 +86,13 @@ TASKS: dict[str, TaskSpec] = _Ported("task", {
         "avoiding", "d3il_tpu_torch.envs.avoiding", "AvoidingParams",
         ds.assemble_avoiding, 4, 2, "AvoidingSim", 250,
         train_kw={"epochs": 80, "n_contexts": 1, "n_trajs": 480}),
-    # the tuned training window stays 1 (see the JAX registry)
+    # the tuned training window stays 1 (see the JAX registry); beso takes
+    # the transformer score backbone there, at window 5
     "pushing": TaskSpec(
         "pushing", "d3il_tpu_torch.envs.pushing", "PushingParams",
         ds.assemble_pushing, 10, 2, "PushingSim", 400,
-        train_kw={"epochs": 100, "n_contexts": 30, "n_trajs": 16}),
+        train_kw={"epochs": 100, "n_contexts": 30, "n_trajs": 16},
+        agent_kw={"beso": {"backbone": "gpt", "window_size": 5}}),
     "aligning": TaskSpec(
         "aligning", "d3il_tpu_torch.envs.aligning", "AligningParams",
         ds.assemble_aligning, 20, 3, "AligningSim", 400,
@@ -144,6 +149,8 @@ AGENTS: dict[str, AgentSpec] = _Ported("agent", {
     "ddpm_encdec": AgentSpec("ddpm_encdec",
                              "d3il_tpu_torch.agents.ddpm_encdec",
                              "DDPMEncDecAgent", ema_decay=0.995),
+    "beso": AgentSpec("beso", "d3il_tpu_torch.agents.beso", "BesoAgent",
+                      ema_decay=0.995),
 })
 
 

@@ -36,6 +36,9 @@ def load_agent(ckpt_path: str, device=None):
         meta["agent"], int(meta["window"]), int(meta["hidden"]),
         int(meta["layers"]), int(meta.get("chunk", 8)),
         int(meta.get("ddpm_steps", 16)))
+    # the per-(task, agent) overrides the run trained with (e.g. the
+    # transformer backbone of pushing's beso)
+    kw.update(meta.get("agent_extra", {}))
     centers = ck.get("centers")
     agent, _ = registry.make_agent(
         meta["agent"], torch.Generator(device=device).manual_seed(0),

@@ -42,7 +42,7 @@ def agent_kwargs(name: str, window: int, hidden: int, layers: int,
     identically)."""
     registry.AGENTS[name]      # raises for an agent that is not ported
     kw = dict(window_size=window)
-    if name in ("bc", "cvae", "gmm", "ibc", "ddpm"):
+    if name in ("bc", "cvae", "gmm", "ibc", "beso", "ddpm"):
         kw.update(hidden_dim=hidden, num_hidden_layers=layers)
     if name in ("act", "ddpm_encdec"):
         kw["chunk"] = chunk
@@ -83,6 +83,11 @@ def build_agent_and_data(args, generator):
 
     kw = agent_kwargs(args.agent, args.window, args.hidden, args.layers,
                       args.chunk, args.ddpm_steps)
+    # the task's tuned overrides for this agent trump the generic CLI
+    # hyperparameters; the checkpoint keeps them as agent_extra
+    extra = dict(spec.agent_kw.get(args.agent, {}))
+    kw.update(extra)
+    args.agent_extra = extra
     acts_scaled = None
     if registry.AGENTS[args.agent].needs_actions:
         acts_scaled = scaler.scale_output(torch.as_tensor(y, device=device))
@@ -151,6 +156,7 @@ def run_one(args) -> dict:
             "window": args.window, "hidden": args.hidden,
             "layers": args.layers, "chunk": args.chunk,
             "ddpm_steps": args.ddpm_steps,
+            "agent_extra": getattr(args, "agent_extra", {}),
             "scale_data": bool(agent.scaler.scale_data)},
             "scaler": {k: v for k, v in agent.scaler._asdict().items()
                        if k != "scale_data"}}

@@ -320,14 +320,16 @@ def test_registry_names_what_is_ported():
     assert sorted(registry.TASKS) == ["aligning", "avoiding", "inserting",
                                       "pushing", "sorting_2", "sorting_4",
                                       "sorting_6", "stacking"]
-    assert sorted(registry.AGENTS) == ["act", "bc", "bet", "bet_mlp", "cvae",
-                                       "ddpm", "ddpm_encdec", "gmm", "gpt_bc",
-                                       "ibc", "lstm_gmm"]
+    assert sorted(registry.AGENTS) == ["act", "bc", "beso", "bet", "bet_mlp",
+                                       "cvae", "ddpm", "ddpm_encdec", "gmm",
+                                       "gpt_bc", "ibc", "lstm_gmm"]
     with pytest.raises(KeyError, match="ported.*pushing"):
         registry.TASKS["sorting_8"]
-    with pytest.raises(KeyError, match="ported.*bc.*ddpm.*gmm.*lstm_gmm"):
-        registry.make_agent("beso", None, OBS, ACT, None)
+    with pytest.raises(KeyError, match="ported.*beso.*ddpm.*gmm.*lstm_gmm"):
+        registry.make_agent("ddpm_vision", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):
         registry.make_agent("bc_vision", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):
-        convert.agent_params_from_numpy("beso", {}, "cpu")
+        convert.agent_params_from_numpy("bc_vision", {}, "cpu")
+    assert registry.TASKS["pushing"].agent_kw == {
+        "beso": {"backbone": "gpt", "window_size": 5}}

@@ -19,14 +19,16 @@ import pytest
 import torch
 
 from test_torch_jaxref import (aligning_contexts, assert_scaled,
-                               check_rod_state, check_start_pose, np_tree,
-                               port_params, tiny_agents, xyz_actions)
+                               check_chunk_composition, check_rod_state,
+                               check_start_pose, np_tree, port_params,
+                               rod_expert_step, tiny_agents, xyz_actions)
 
 from d3il_tpu.envs import aligning as jaligning
 from d3il_tpu.eval import metrics as jmetrics
 from d3il_tpu.eval import rollout as jrollout
 from d3il_tpu.eval import sims as jsims
 from d3il_tpu_torch import convert
+from d3il_tpu_torch.data import experts
 from d3il_tpu_torch.envs import aligning
 from d3il_tpu_torch.envs.scenes import TABLE_Z
 from d3il_tpu_torch.eval import sims
@@ -243,3 +245,26 @@ def test_bc_rollout_through_aligning_sim_matches(kin_pair, monkeypatch):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
     assert got["success_rate"] == 0.5
     assert_scaled(got["mean_distance"], want["mean_distance"], 1e-5)
+
+
+def test_expert_runner_chunk_is_its_steps(kin_pair):
+    """One chunk of the aligning expert runner (2 steps, B = 3 in modes 0,
+    1, 0, env 0 finished) equals the port's aligning expert step, its env
+    step and the rollout's freeze composed step by step, exactly."""
+    _, params = kin_pair
+    init, chunk = experts.make_aligning_runner(params, chunk_len=2)
+    ctx = tuple(torch.from_numpy(c) for c in aligning_contexts(5, B))
+    carry0 = init(ctx, np.array([0, 1, 0]))
+
+    def expert(carry, tcp):
+        s = carry.env
+        es, delta = experts.aligning_expert_step(
+            carry.es, carry.des, tcp, s.scene.free_pos[:, 0],
+            s.scene.free_quat[:, 0], s.target_pos, s.target_quat,
+            carry.extras[0])
+        return es, delta, (s.scene.free_pos[:, 0], s.scene.free_quat[:, 0])
+
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, B, 3)).astype(np.float32))
+    check_chunk_composition(carry0, chunk, rod_expert_step(
+        params, aligning.step, expert), noise)

@@ -22,13 +22,16 @@ import pytest
 import torch
 
 from chip_smoke import avoiding_contact_posture
-from test_torch_jaxref import (HOLD_QUAT, check_rod_state, check_start_pose,
-                               np_tree, port_params, tiny_agents)
+from test_torch_jaxref import (HOLD_QUAT, assert_scaled, check_rod_state,
+                               check_start_pose, np_tree, port_params,
+                               runner_noise, tiny_agents)
 
+from d3il_tpu.data import experts_jax as jexperts
 from d3il_tpu.engine import collision as jcollision
 from d3il_tpu.envs import avoiding as javoiding
 from d3il_tpu.envs import scenes as jscenes
 from d3il_tpu_torch import convert
+from d3il_tpu_torch.data import experts
 from d3il_tpu_torch.engine import collision
 from d3il_tpu_torch.envs import avoiding, scenes
 from d3il_tpu_torch.eval import sims
@@ -279,3 +282,34 @@ def test_bc_rollout_through_avoiding_sim(kin_pair):
     assert (torch.diff(torch.stack(tcp0), dim=0).abs() <= 0.01 + 1e-6).all()
     out = sim.score(state)
     assert 0.0 <= out["success_rate"] <= 1.0 and 0.0 <= out["entropy"] <= 1.0
+
+
+def test_expert_runner_matches_jax(kin_pair):
+    """The avoiding expert runner (kinematic, as demo generation runs it):
+    B = 2, chunk_len 2, two chunks through ``run_chunked`` on both sides,
+    the port given each env's JAX exploration normals: the env state at
+    the tolerances above, the waypoint index and the dones exactly, the
+    logged setpoints and tcps 3e-4 scaled."""
+    jparams, params = kin_pair
+    n, L = 2, 2
+    rng = np.random.default_rng(4)
+    wps = np.stack([experts.avoiding_waypoints(mode, rng)
+                    for mode in ((0, 1, 2), (1, 2, 3))])
+    keys = jax.random.split(jax.random.PRNGKey(12), n)
+    jinit, jchunk = jexperts.make_avoiding_runner(jparams, chunk_len=L)
+    carry0, fixed_z = jax.jit(jax.vmap(jinit))(keys)
+    jcw, jlogs, jdones = jexperts.run_chunked(
+        jax.jit(jax.vmap(jchunk)), (carry0, (jnp.asarray(wps), fixed_z)),
+        2 * L, L)
+    init, chunk = experts.make_avoiding_runner(params, chunk_len=L)
+    carry, logs, dones = experts.run_chunked(
+        chunk, init(wps), 2 * L, L,
+        noise=torch.from_numpy(runner_noise(keys, 2 * L, 2)))
+    check_rod_state(np_tree(jcw[0].env), convert.state_to_numpy(carry.env),
+                    FIELDS, "after two chunks")
+    np.testing.assert_array_equal(carry.es.k.numpy(), jcw[0].es.k)
+    np.testing.assert_array_equal(dones, jdones)
+    assert dones.shape == (n, 2 * L)
+    for got, want, name in zip(logs, jlogs, ("des", "tcp")):
+        assert_scaled(got, want, 3e-4, name)
+    assert np.abs(np.diff(logs[0][..., :2], axis=1)).max() <= 0.011 + 1e-6

@@ -581,3 +581,89 @@ def test_agent_forward_on_the_card(cuda_device, name):
                                   o.to(cuda_device), **dev_kw)
         np.testing.assert_allclose(da.cpu().numpy(), a.numpy(), atol=1e-5,
                                    err_msg=f"step {t}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ("mlp", "gpt"))
+def test_beso_on_the_card(cuda_device, backbone):
+    """beso at its registry defaults (the GPT at pushing's window 5) on the
+    card against the same weights on the CPU: the loss on 64 windows with
+    the CPU's draws (1e-4 relative) and two policy steps of 33 episodes of
+    the default euler_ancestral sampler (8 steps) with the starting actions
+    and the sampler's normals drawn on the CPU (1e-5 absolute on actions of
+    ~5e-3)."""
+    from d3il_tpu_torch import registry
+    from d3il_tpu_torch.data.scaler import Scaler
+    rng = np.random.default_rng(17)
+    OBS, ACT, n, B = 10, 2, 64, 33
+    kw = {"backbone": "gpt", "window_size": 5} if backbone == "gpt" else {}
+    x = rng.normal(size=(256, OBS)).astype(np.float32)
+    y = (0.005 * rng.normal(size=(256, ACT))).astype(np.float32)
+    scaler = Scaler.fit(x, y, device="cpu")
+    agent, _ = registry.make_agent("beso", torch.Generator().manual_seed(0),
+                                   OBS, ACT, scaler, **kw)
+    dev_agent, _ = registry.make_agent(
+        "beso", torch.Generator().manual_seed(0), OBS, ACT,
+        Scaler(*(t.to(cuda_device) if torch.is_tensor(t) else t
+                 for t in scaler)), **kw)
+    dev_agent.params = {k: v.to(cuda_device) for k, v in agent.params.items()}
+    W = agent.window_size
+    obs = torch.from_numpy(rng.normal(size=(n, W, OBS)).astype(np.float32))
+    act = torch.from_numpy((0.005 * rng.normal(size=(n, W, ACT))).astype(
+        np.float32))
+    g = torch.Generator().manual_seed(1)
+    tgt = (n, W, ACT) if backbone == "gpt" else (n, ACT)
+    draws = {"u": 0.05 + 0.6 * torch.rand(n, generator=g),
+             "noise": torch.randn(tgt, generator=g)}
+    want = agent.loss_fn()(agent.params, obs, act, None, **draws)
+    got = dev_agent.loss_fn()(dev_agent.params, obs.to(cuda_device),
+                              act.to(cuda_device), None,
+                              **{k: v.to(cuda_device)
+                                 for k, v in draws.items()})
+    np.testing.assert_allclose(got.item(), want.item(), rtol=1e-4)
+    apply, dev_apply = agent.policy_apply(None), dev_agent.policy_apply(None)
+    carry, dev_carry = agent.init_carry(OBS, B), dev_agent.init_carry(OBS, B)
+    shape = agent.action_shape(B)
+    for t in range(2):
+        o = torch.from_numpy(rng.normal(size=(B, OBS)).astype(np.float32))
+        d = (torch.randn(shape, generator=g),
+             torch.randn((agent.n_steps,) + shape, generator=g))
+        with torch.no_grad():
+            carry, a = apply(agent.params, carry, o, d)
+            dev_carry, da = dev_apply(dev_agent.params, dev_carry,
+                                      o.to(cuda_device),
+                                      tuple(x.to(cuda_device) for x in d))
+        np.testing.assert_allclose(da.cpu().numpy(), a.numpy(), atol=1e-5,
+                                   err_msg=f"step {t}")
+
+
+@pytest.mark.cuda
+def test_pushing_expert_runner_on_the_card(cuda_device):
+    """One chunk (2 steps) of the kinematic pushing expert runner for 33
+    episodes on the card (K1 and K3 launched) against the same chunk on the
+    CPU (their plain versions), the same contexts, modes and exploration
+    normals: the expert's discrete state and the dones exactly, the scene
+    and the logs 1e-3 max-scaled."""
+    from d3il_tpu_torch.data import experts, gen_demos
+    B, L = 33, 2
+    gen = torch.Generator().manual_seed(3)
+    ctx = pushing.sample_context(gen, B)
+    modes = np.arange(B) % 4
+    seq_box, seq_tgt = gen_demos.pushing_sequences(modes)
+    noise = torch.randn((L, B, 2), generator=gen)
+    out = []
+    for dev in ("cpu", cuda_device):
+        params = pushing.PushingParams(n_substeps=2, device=dev,
+                                       q_init=Q_INIT, kinematic=True)
+        init, chunk = experts.make_pushing_runner(params, chunk_len=L)
+        carry = init(tuple(c.to(dev) for c in ctx), seq_box, seq_tgt)
+        out.append(chunk(carry, noise.to(dev)))
+    (c0, logs0, d0), (c1, logs1, d1) = out
+    for name in ("stage", "phase", "stall"):
+        assert torch.equal(getattr(c1.es, name).cpu(), getattr(c0.es, name))
+    assert torch.equal(d1.cpu(), d0)
+    for name in ("q", "qd", "free_pos", "free_quat"):
+        assert _scaled_err(getattr(c1.env.scene, name),
+                           getattr(c0.env.scene, name)) <= 1e-3, name
+    for a, b in zip(logs1, logs0):
+        assert _scaled_err(a, b) <= 1e-3

@@ -193,7 +193,7 @@ def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
 def test_cli_rejects_what_is_not_ported():
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--agent",
-         "beso", "--device", "cpu"], capture_output=True, text=True,
+         "bc_vision", "--device", "cpu"], capture_output=True, text=True,
         timeout=120)
     assert r.returncode != 0 and "invalid choice" in r.stderr
 

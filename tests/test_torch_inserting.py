@@ -29,15 +29,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_jaxref import (_yaw_quat, actions, check_rod_state,
-                               check_start_pose, np_tree, port_params,
-                               tiny_agents)
+from test_torch_jaxref import (_yaw_quat, actions, check_chunk_composition,
+                               check_rod_state, check_start_pose, np_tree,
+                               port_params, rod_expert_step, tiny_agents)
 
 from d3il_tpu.engine import contact as jcontact
 from d3il_tpu.engine import step as jestep
 from d3il_tpu.envs import inserting as jinserting
 from d3il_tpu.eval import metrics as jmetrics
 from d3il_tpu_torch import convert
+from d3il_tpu_torch.data import experts
 from d3il_tpu_torch.engine import contact_kernel
 from d3il_tpu_torch.envs import inserting
 from d3il_tpu_torch.eval import sims
@@ -357,3 +358,26 @@ def test_gmm_rollout_through_inserting_sim_matches(jparams, dynamic,
     got = sim.score(state)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-6, err_msg=k)
+
+
+def test_expert_runner_chunk_is_its_steps(dynamic):
+    """One chunk of the inserting expert runner (2 steps, B = 2 in two
+    orders, env 0 finished) equals the port's inserting expert step (the
+    env's visited flags), its env step and the rollout's freeze composed
+    step by step, exactly."""
+    params = dynamic[0]
+    init, chunk = experts.make_inserting_runner(params, chunk_len=2)
+    ctx = tuple(torch.from_numpy(c) for c in inserting_contexts(3, B))
+    carry0 = init(ctx, np.array([[0, 1, 2], [2, 1, 0]]))
+
+    def expert(carry, tcp):
+        s = carry.env
+        es, delta = experts.inserting_expert_step(
+            carry.es, carry.des, tcp[:, :2], s.scene.free_pos, s.visited,
+            carry.extras[0], push_depth=experts.PUSH_DEPTH_DYN)
+        return es, delta, (s.scene.free_pos, s.scene.free_quat)
+
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, B, 2)).astype(np.float32))
+    check_chunk_composition(carry0, chunk, rod_expert_step(
+        params, inserting.step, expert), noise)

@@ -3,9 +3,9 @@
 In a fresh interpreter with ``sys.modules["jax"] = None`` (so any
 ``import jax`` raises; likewise jaxlib, flax, optax, orbax), every module of
 d3il_tpu_torch and both entry scripts must import, and no ``d3il_tpu``
-module may have been loaded. chip_smoke.py and the entry scripts are also
-read for such imports, since chip_smoke.py imports the port only once it has
-found a card.
+module may have been loaded; likewise tools/gen_demos_torch.py.
+chip_smoke.py and the entry scripts are also read for such imports, since
+chip_smoke.py imports the port only once it has found a card.
 """
 import os
 import subprocess
@@ -24,6 +24,10 @@ names = [m.name for m in pkgutil.walk_packages(d3il_tpu_torch.__path__,
                                                "d3il_tpu_torch.")]
 for name in names + ["run_train_torch", "run_eval_torch"]:
     importlib.import_module(name)
+import importlib.util
+spec = importlib.util.spec_from_file_location("gen_demos_torch",
+                                              "tools/gen_demos_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "envs.stacking", "control.joint_pd", "utils.logging",
              "data.scaler", "data.dataset",
@@ -31,7 +35,8 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "agents.gmm", "agents.base", "envs.inserting",
              "agents.nets.transformer", "agents.gpt_bc", "agents.bet",
              "agents.act", "agents.cvae", "agents.lstm_gmm", "agents.ibc",
-             "agents.ddpm", "agents.ddpm_encdec", "eval.metrics",
+             "agents.ddpm", "agents.ddpm_encdec", "agents.beso",
+             "data.experts", "data.gen_demos", "eval.metrics",
              "eval.contexts",
              "eval.rollout", "eval.sims", "registry", "convert"):
     assert "d3il_tpu_torch." + want in names, want
@@ -51,12 +56,12 @@ def test_port_imports_without_jax():
 
 
 def test_scripts_name_no_jax_module():
-    """Every import statement of chip_smoke.py and the two entry scripts,
-    wherever it stands in the file."""
+    """Every import statement of chip_smoke.py, the two entry scripts and
+    the demo CLI, wherever it stands in the file."""
     import ast
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "d3il_tpu"}
     for script in ("chip_smoke.py", "run_train_torch.py",
-                   "run_eval_torch.py"):
+                   "run_eval_torch.py", "tools/gen_demos_torch.py"):
         with open(os.path.join(ROOT, script)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
@@ -105,3 +110,13 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
         run_train_torch.run_one(run_train_torch.make_args(agent="gmm"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_eval_torch.load_agent("missing.pt")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "gen_demos_torch", os.path.join(ROOT, "tools", "gen_demos_torch.py"))
+    gen_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_cli)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gen_cli.main(["--task", "pushing", "--out", "missing"])
+    from d3il_tpu_torch.data import gen_demos
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gen_demos.make_params("pushing")

@@ -200,3 +200,76 @@ def tiny_agents(name, obs_dim=10, act_dim=2, hidden=16, layers=2, seed=0,
     agent.params = convert.agent_params_from_numpy(
         name, jax.tree_util.tree_map(np.asarray, jagent.params), "cpu")
     return jagent, agent
+
+
+def runner_noise(keys, steps, dim):
+    """The unit normals a JAX expert runner draws for its exploration noise,
+    [steps, B, dim]: each env's carry key split once per step (``key, kn =
+    split(key)``), ``normal(kn, (dim,))``."""
+    import jax
+    out = []
+    for key in keys:
+        zs = []
+        for _ in range(steps):
+            key, kn = jax.random.split(key)
+            zs.append(np.asarray(jax.random.normal(kn, (dim,))))
+        out.append(np.stack(zs))
+    return np.stack(out, axis=1)
+
+
+def rod_expert_step(params, env_step, expert):
+    """One step of a rod task's expert runner, composed here from the
+    port's expert step (``expert(carry, tcp) -> (es, delta, extra logs)``),
+    its env step and the rollout's ``_freeze``: noisy setpoint clipped to
+    +-0.011 m, planar (the carry's fixed z) or xyz."""
+    from d3il_tpu_torch.data import experts
+    from d3il_tpu_torch.eval.rollout import _freeze
+    down = torch.tensor(HOLD_QUAT, dtype=torch.float32)
+
+    def step(carry, z):
+        s, done = carry.env, carry.done
+        tcp, _ = params.tcp_pose(s.scene)
+        es, delta, more = expert(carry, tcp)
+        des = torch.where(done[:, None], carry.des, carry.des + torch.clamp(
+            delta + z * experts.DES_NOISE, -0.011, 0.011))
+        pos = torch.cat([des, carry.fixed_z], 1) if des.shape[1] == 2 \
+            else des
+        action = torch.cat([pos, down.expand(pos.shape[0], 4)], 1)
+        ns, res = env_step(params, s, action)
+        return (carry._replace(env=_freeze(done, ns, s),
+                               es=_freeze(done, es, carry.es), des=des,
+                               done=done | res.done),
+                (pos, tcp) + more, res.done)
+
+    return step
+
+
+def _tensor_leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    return [x for t in tree for x in _tensor_leaves(t)]
+
+
+def check_chunk_composition(carry0, chunk, step, noise):
+    """One chunk of a port runner from ``carry0`` (its env 0 marked done)
+    equals ``step`` composed over the chunk's steps, exactly: every carry
+    leaf, log and done; env 0's env and expert state stay frozen, the
+    others move."""
+    done = torch.zeros_like(carry0.done)
+    done[0] = True
+    carry0 = carry0._replace(done=done)
+    carry, logs, dones = chunk(carry0, noise)
+    c, mlogs, mdones = carry0, [], []
+    for z in noise:
+        c, log, d = step(c, z)
+        mlogs.append(log)
+        mdones.append(d)
+    for a, b in zip(_tensor_leaves(carry), _tensor_leaves(c)):
+        assert torch.equal(a, b)
+    for a, b in zip(logs, [torch.stack(x) for x in zip(*mlogs)]):
+        assert torch.equal(a, b)
+    assert torch.equal(dones, torch.stack(mdones))
+    new, old = (_tensor_leaves((x.env, x.es)) for x in (carry, carry0))
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(new, old))
+    assert not all(torch.equal(a[1:], b[1:]) for a, b in zip(new, old))
+    return carry

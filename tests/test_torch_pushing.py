@@ -19,9 +19,11 @@ import torch
 
 from test_torch_jaxref import (HOLD_QUAT, actions, assert_scaled,
                                check_rod_state, contexts, jax_pushing_params,
-                               np_tree, port_pushing_params, tiny_agents)
+                               np_tree, port_pushing_params, runner_noise,
+                               tiny_agents)
 
 from d3il_tpu.control import offline_ik as joffline_ik
+from d3il_tpu.data import experts_jax as jexperts
 from d3il_tpu.envs import pushing as jpushing
 from d3il_tpu.eval import metrics as jmetrics
 from d3il_tpu.eval import rollout as jrollout
@@ -29,6 +31,7 @@ from d3il_tpu.eval import sims as jsims
 from d3il_tpu.robot import panda as jpanda
 from d3il_tpu_torch import convert
 from d3il_tpu_torch.control import offline_ik
+from d3il_tpu_torch.data import experts, gen_demos
 from d3il_tpu_torch.envs import pushing
 from d3il_tpu_torch.eval import rollout, sims
 from d3il_tpu_torch.robot import panda
@@ -277,3 +280,40 @@ def test_rollout_freezes_every_leaf_of_finished_episodes(kin_pair,
     np.testing.assert_array_equal(b["t"], [3, 3, 1, 1])
     assert np.abs(a["scene"]["q"][:2] - b["scene"]["q"][:2]).max() > 0
     assert moves and max(moves) <= 0.01 + 1e-6
+
+
+def test_expert_runner_matches_jax(kin_pair):
+    """The pushing expert runner, kinematic (demo generation's default):
+    B = 2 in modes 0 and 3, chunk_len 2, two chunks through
+    ``run_chunked`` on both sides, the port given each env's JAX
+    exploration normals: the env state at the tolerances above, the expert
+    state's stage, phase and stall exactly and its distances 3e-4 scaled,
+    the dones exactly, the logs (setpoint, tcp, box poses) 3e-4 scaled."""
+    jparams, params = kin_pair
+    n, L = 2, 2
+    ctx = contexts(13, n)
+    seq_box, seq_tgt = gen_demos.pushing_sequences(np.array([0, 3]))
+    keys = jax.random.split(jax.random.PRNGKey(14), n)
+    jinit, jchunk = jexperts.make_pushing_runner(jparams, chunk_len=L)
+    carry0, fixed_z = jax.jit(jax.vmap(jinit))(
+        tuple(jnp.asarray(c) for c in ctx), keys)
+    jcw, jlogs, jdones = jexperts.run_chunked(
+        jax.jit(jax.vmap(jchunk)),
+        (carry0, (jnp.asarray(seq_box), jnp.asarray(seq_tgt), fixed_z)),
+        2 * L, L)
+    init, chunk = experts.make_pushing_runner(params, chunk_len=L)
+    carry, logs, dones = experts.run_chunked(
+        chunk, init(tuple(torch.from_numpy(c) for c in ctx), seq_box,
+                    seq_tgt), 2 * L, L,
+        noise=torch.from_numpy(runner_noise(keys, 2 * L, 2)))
+    _check_state(np_tree(jcw[0].env), convert.state_to_numpy(carry.env),
+                 "after two chunks")
+    jes = np_tree(jcw[0].es)
+    for name in ("stage", "phase", "stall", "striking"):
+        np.testing.assert_array_equal(getattr(carry.es, name).numpy(),
+                                      getattr(jes, name), err_msg=name)
+    assert_scaled(carry.es.prev_d.numpy(), jes.prev_d, 3e-4, "prev_d")
+    np.testing.assert_array_equal(dones, jdones)
+    for got, want, name in zip(logs, jlogs, ("des", "tcp", "pos", "quat")):
+        assert_scaled(got, want, 3e-4, name)
+    assert np.abs(np.diff(logs[0][..., :2], axis=1)).max() <= 0.011 + 1e-6

@@ -19,8 +19,9 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_jaxref import (actions, check_rod_state, check_start_pose,
-                               np_tree, port_params, sorting_contexts,
+from test_torch_jaxref import (actions, check_chunk_composition,
+                               check_rod_state, check_start_pose, np_tree,
+                               port_params, rod_expert_step, sorting_contexts,
                                tiny_agents)
 
 from d3il_tpu.envs import sorting as jsorting
@@ -29,6 +30,7 @@ from d3il_tpu.eval import metrics as jmetrics
 from d3il_tpu.eval import rollout as jrollout
 from d3il_tpu.eval import sims as jsims
 from d3il_tpu_torch import convert
+from d3il_tpu_torch.data import experts
 from d3il_tpu_torch.envs import sorting
 from d3il_tpu_torch.eval import sims
 
@@ -296,3 +298,25 @@ def test_uniform_prior_matches():
         jkeys, jprior = jsims.sorting_uniform_prior(n)
         np.testing.assert_array_equal(keys, jkeys)
         np.testing.assert_allclose(prior, jprior)
+
+
+def test_expert_runner_chunk_is_its_steps(kin_pair):
+    """One chunk of the sorting expert runner (2 boxes, 2 steps, B = 2,
+    env 0 finished) equals the port's sorting expert step, its env step
+    and the rollout's freeze composed step by step, exactly."""
+    _, params = kin_pair
+    init, chunk = experts.make_sorting_runner(params, chunk_len=2)
+    ctx = tuple(torch.from_numpy(c) for c in sorting_contexts(3, B, 2))
+    carry0 = init(ctx, np.array([[0, 1], [1, 0]]))
+
+    def expert(carry, tcp):
+        s = carry.env
+        es, delta = experts.sorting_expert_step(
+            carry.es, carry.des, tcp[:, :2], s.scene.free_pos,
+            carry.extras[0], 1, push_depth=experts.PUSH_DEPTH)
+        return es, delta, (s.scene.free_pos, s.scene.free_quat)
+
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, B, 2)).astype(np.float32))
+    check_chunk_composition(carry0, chunk, rod_expert_step(
+        params, sorting.step, expert), noise)

@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from chip_smoke import box_between_fingers
-from test_torch_jaxref import (assert_scaled, check_rod_state,
+from test_torch_jaxref import (assert_scaled, check_chunk_composition,
+                               check_rod_state,
                                check_start_pose, np_tree, port_params,
                                tiny_agents)
 
@@ -36,8 +37,10 @@ from d3il_tpu.eval import rollout as jrollout
 from d3il_tpu.eval import sims as jsims
 from d3il_tpu_torch import convert
 from d3il_tpu_torch.control import joint_pd
+from d3il_tpu_torch.data import experts
 from d3il_tpu_torch.envs import stacking
 from d3il_tpu_torch.eval import sims
+from d3il_tpu_torch.eval.rollout import _freeze
 
 B = 3
 FIELDS = ("grasp", "t", "terminated", "target_xy", "mode", "mode_len",
@@ -326,3 +329,35 @@ def test_bc_rollout_through_stacking_sim_matches(pair, jax_reset,
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
+
+
+def test_expert_runner_chunk_is_its_steps(pair):
+    """One chunk of the stacking expert runner (full dynamics, as demo
+    generation runs stacking; 2 steps, B = 3, env 0 finished) equals the
+    port's stacking expert step (the gates on the physical tcp and the
+    measured width), the noisy joint setpoint, its env step and the
+    rollout's freeze composed step by step, exactly."""
+    _, params = pair
+    init, chunk = experts.make_stacking_runner(params, chunk_len=2)
+    ctx = tuple(torch.from_numpy(c) for c in stacking_contexts(5, B))
+    carry0 = init(ctx, np.array([[0, 1, 2], [2, 0, 1], [1, 2, 0]]))
+
+    def step(carry, z):
+        s, done = carry.env, carry.done
+        tcp, _ = params.tcp_pose(s.scene)
+        width = s.scene.q[:, 7] + s.scene.q[:, 8]
+        es, action = experts.stacking_expert_step(
+            params.ctrl_chain, carry.es, s.scene.free_pos, s.scene.free_quat,
+            s.target_xy, carry.extras[0], tcp_pos=tcp, width_meas=width)
+        q = action[:, :7] + torch.where(done[:, None], 0.0,
+                                        z * experts.STACK_Q_NOISE)
+        ns, res = stacking.step(params, s, torch.cat([q, action[:, 7:]], 1))
+        return (carry._replace(env=_freeze(done, ns, s),
+                               es=_freeze(done, es, carry.es),
+                               done=done | res.done),
+                (q, width, s.scene.free_pos, s.scene.free_quat), res.done)
+
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, B, 7)).astype(np.float32))
+    carry = check_chunk_composition(carry0, chunk, step, noise)
+    assert (carry.es.q_des[1:] != carry0.es.q_des[1:]).any()

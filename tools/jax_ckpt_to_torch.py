@@ -39,6 +39,10 @@ def main():
             "seed": int(m["seed"]), "window": int(m["window"]),
             "hidden": int(m["hidden"]), "layers": int(m["layers"]),
             "chunk": int(m["chunk"]), "ddpm_steps": int(m["ddpm_steps"]),
+            # e.g. pushing's beso backbone; orbax gives numbers back as
+            # NumPy scalars
+            "agent_extra": {str(k): v.item() if hasattr(v, "item") else v
+                            for k, v in m.get("agent_extra", {}).items()},
             "scale_data": bool(m["scale_data"])}
     scaler = {k: torch.as_tensor(np.array(v, np.float32))
               for k, v in ck["scaler"].items()}
