@@ -126,10 +126,31 @@ Phases (each fatal on failure):
      all) at the tolerances of phase 2; prints episode-steps/s (of the
      uninstrumented run), the expert step's share of the instrumented step
      and the launches, then one ``demos`` JSON line;
- 10. print the ``kernels`` JSON line (with ``design``, the PR whose design
+ 10. vision on VISION_TASK (sorting_2) at full width, its Params() from
+     phase 5 and its 60 x 8 = 480 episodes: both cameras at 96 x 96 of the
+     batch after a reset, checked (values in [0, 1], each box colour seen
+     by the bp camera in every env, the inhand view following the tcp (a
+     box in view with the tcp 8 cm beside it), VISION_CPU_ENVS envs rendered on the CPU agreeing with the
+     card's on 99.8 % of pixels within 1e-5) and timed; bc_vision at its
+     registry defaults trained on data/sorting_2 through run_vision_torch's
+     functions (VISION_EPOCHS epochs of VISION_STEPS_PER_EPOCH steps, one
+     rollout selection eval at the end), saved, reloaded through
+     run_eval_torch.load_agent and rolled out VISION_STEPS_DYNAMIC dynamic
+     + VISION_STEPS_KINEMATIC kinematic steps; then each of VISION_AGENTS
+     trained VISION_AGENT_TRAIN_STEPS steps, reloaded and rolled out
+     VISION_AGENT_STEPS dynamic step; per agent: parameters, train
+     seconds, episode-steps/s, render, encoder-forward and policy-step ms
+     at B = 480 (CUDA events), peak device memory in training and in the
+     rollout; checks of finite actions and state, the frozen episodes,
+     the setpoint clip, the metrics' range and the launch counts (K1 =
+     steps, K2 = 35 x steps + the reset's 60 hold substeps under full
+     dynamics and 0 kinematic, K3 = 35 x steps + 60); one ``vision`` JSON
+     line;
+ 11. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
-     ``launches_demos``, and one K3 row per scene of phases 5-7), the card
-     line, and last {"ok": true, "device": {...}}.
+     ``launches_demos``, ``launches_vision`` (phase 10's rollouts; on the
+     K3 rows, sorting_2's alone), and one K3 row per scene of phases 5-7),
+     the card line, and last {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -190,6 +211,23 @@ DEMO_FROZEN_EVERY = 10
 # K1's plain version is a host loop of ~6 s at any batch: K1 is held on the
 # demo inputs of one case (K2 and K3 on every case that launches them)
 DEMO_K1_CASE = ("pushing", False)
+# the vision path (phase 10) on sorting_2's 60 x 8 = 480 episodes: bc_vision
+# at its registry defaults (96 x 96 images) through run_vision_torch's
+# functions, cut to VISION_EPOCHS epochs of VISION_STEPS_PER_EPOCH minibatch
+# steps (of 100 epochs x 40 steps at batch 512) with one selection eval at
+# the end (VISION_SELECT: contexts, trajectories, dynamic steps), then
+# rolled out; the nine other vision agents trained VISION_AGENT_TRAIN_STEPS
+# steps and rolled out VISION_AGENT_STEPS dynamic steps
+VISION_TASK = "sorting_2"
+VISION_EPOCHS, VISION_STEPS_PER_EPOCH = 2, 10
+VISION_SELECT = (2, 2, 2)
+VISION_STEPS_DYNAMIC, VISION_STEPS_KINEMATIC = 2, 2
+VISION_AGENTS = ("ddpm_vision", "bet_mlp_vision", "gmm_vision",
+                 "cvae_vision", "beso_vision", "act_vision", "gpt_bc_vision",
+                 "ibc_vision", "ddpm_encdec_vision")
+VISION_AGENT_TRAIN_STEPS = 5
+VISION_AGENT_STEPS = 1
+VISION_CPU_ENVS = 8     # views rendered on the CPU too, held to the card's
 # the Params() each scene's phase built (3, 5-7), reused by the demo phase
 SCENE_PARAMS = {}
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
@@ -1710,6 +1748,217 @@ def demo_case(task, kinematic, T, counters, tols, card):
     return row, [f"demos {label}: {b}" for b in bad]
 
 
+def vision_views(spec, params, card, problems):
+    """The task's views of its 480-episode batch after a reset, both
+    cameras at 96 x 96 on the card: in [0, 1], each box colour seen by the
+    bp camera in every env, the inhand view following the tcp (with the
+    tcp 8 cm beside a box, the box in view), and the first
+    VISION_CPU_ENVS envs' views rendered on the CPU agreeing with the
+    card's. Returns the policy observations."""
+    import torch
+    from d3il_tpu_torch.eval import sims
+    from d3il_tpu_torch.vision import taskviews
+    n_ctx, n_traj = rod_workload(spec.name)
+    sim = spec.make_sim(seed=0, n_contexts=n_ctx,
+                        n_trajectories_per_context=n_traj)
+    env = sim.env()
+    cidx, _ = sims._grid(n_ctx, n_traj, 0, params.device)
+    state = env.reset(params, tuple(x[cidx] for x in sim.contexts(params)))
+    tcp, _ = params.tcp_pose(state.scene)
+    obs = torch.cat([tcp[:, :2], env.get_observation(params, state)], 1)
+    render = taskviews.make_render_obs(spec.name)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bp, ih, low = render(obs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: render(obs), 5)
+    is_red = lambda im: ((im[..., 0] > 0.5) & (im[..., 1] < 0.2)
+                         & (im[..., 2] < 0.2)).sum(dim=(1, 2))
+    is_blue = lambda im: ((im[..., 2] > 0.5) & (im[..., 0] < 0.2)) \
+        .sum(dim=(1, 2))
+    red, blue = is_red(bp), is_blue(bp)
+    # the inhand camera follows the tcp: with the tcp 8 cm beside the first
+    # red (then the first blue) box, that box fills part of its view, off
+    # the rod below the camera
+    n_box = (obs.shape[1] - 4) // 3
+    follow = []
+    for col, count in ((0, is_red), (n_box // 2, is_blue)):
+        moved = obs.clone()
+        moved[:, 2] = obs[:, 4 + 3 * col] + 0.08
+        moved[:, 3] = obs[:, 5 + 3 * col]
+        follow.append(count(render(moved)[1]).min().item())
+    k = VISION_CPU_ENVS
+    cpu = taskviews.make_render_obs(spec.name)(obs[:k].cpu())
+    agree = min(((a.cpu() - b).abs() <= 1e-5).all(-1).float().mean().item()
+                for a, b in zip((bp[:k], ih[:k]), cpu[:2]))
+    lo = min(bp.min().item(), ih.min().item())
+    hi = max(bp.max().item(), ih.max().item())
+    log(f"vision views ({spec.name}, {obs.shape[0]} envs, both cameras at "
+        f"{bp.shape[1]} x {bp.shape[2]}): render {ms:.2f} ms (CUDA events, "
+        f"median of 5), {peak / 2**20:.1f} MiB above the resident; values in "
+        f"[{lo:.3f}, {hi:.3f}]; red pixels per env min "
+        f"{red.min().item()}, blue min {blue.min().item()}; the inhand "
+        f"view with the tcp beside a red / blue box: that colour's pixels "
+        f"per env min {follow[0]} / {follow[1]}; CPU vs card on {k} envs: "
+        f"{agree:.2%} of pixels within 1e-5 [{card}]")
+    if not (0.0 <= lo and hi <= 1.0):
+        problems.append(f"views outside [0, 1]: [{lo}, {hi}]")
+    if red.min().item() < 4 or blue.min().item() < 4:
+        problems.append("a box colour is missing from the bp view of some "
+                        "env")
+    if min(follow) < 20:
+        problems.append("the inhand view does not follow the tcp")
+    if agree < 0.998:
+        problems.append(f"the CPU's views agree with the card's on only "
+                        f"{agree:.2%} of pixels")
+    return obs
+
+
+def vision_step_times(agent, obs):
+    """CUDA-event times (median of 5) at the batch of ``obs``: the render
+    of both cameras, the encoder forward on its images, and one whole
+    policy step from a fresh carry."""
+    import torch
+    from torch.func import functional_call
+    from d3il_tpu_torch.agents import vision
+    bp, ih, low = agent.render_fn(obs)
+    low = vision._scale_low(agent.scaler, low)
+    core = agent.model.core
+    sub = vision._sub(agent.params, "core")
+    apply = agent.policy_apply(torch.Generator(device=obs.device)
+                               .manual_seed(0))
+    carry = agent.init_carry(obs.shape[1], obs.shape[0])
+    with torch.no_grad():
+        return (cuda_ms(lambda: agent.render_fn(obs), 5),
+                cuda_ms(lambda: functional_call(core, sub, (bp, ih, low)), 5),
+                cuda_ms(lambda: apply(agent.params, carry, obs), 5))
+
+
+def vision_agent(name, spec, q_init, obs, counters, card, steps, **train):
+    """One vision agent at its registry defaults trained through
+    run_vision_torch.run (``train``: its cut), saved, reloaded by
+    run_eval_torch.load_agent and rolled out ``steps`` (mode, kinematic, T)
+    on the task's 480-episode batch. Returns (row, problems, launches
+    summed over the rollouts)."""
+    import torch
+    import run_eval_torch
+    import run_vision_torch
+    ckpt = os.path.join(ROOT, "build", "chip_smoke",
+                        f"{spec.name}_{name}.pt")
+    vargs = run_vision_torch.make_args(
+        task=spec.name, agent=name, device="cuda", skip_eval=True,
+        ckpt=ckpt, data=os.path.join(ROOT, "data"), **train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_vision_torch.run(vargs)
+    train_peak = torch.cuda.max_memory_allocated()
+    _, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
+    saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+    problems = []
+    if set(saved["params"]) != set(agent.params) or not all(
+            torch.equal(agent.params[k], v)
+            for k, v in saved["params"].items()):
+        problems.append("the reloaded weights differ from the saved")
+    n_params = sum(v.numel() for v in agent.params.values())
+    render_ms, enc_ms, policy_ms = vision_step_times(agent, obs)
+    row = {"agent": name, "params": n_params,
+           "train_seconds": out["train_seconds"],
+           "train_steps": vargs.epochs * vargs.steps_per_epoch,
+           "selected_epoch": out["selected_epoch"],
+           "render_ms": render_ms, "encoder_ms": enc_ms,
+           "policy_ms": policy_ms, "train_peak_mib": train_peak / 2**20}
+    n_eps = obs.shape[0]
+    settle = spec.env().SETTLE_SUBSTEPS
+    total = dict.fromkeys(counters, 0)
+    for mode, kin, T in steps:
+        watch = ActionWatch(agent)
+        torch.cuda.reset_peak_memory_stats()
+        state, dones, metrics, ln, secs, reset_s, w = eval_rollout(
+            spec, watch, q_init, kin, T, counters, card,
+            workload=rod_workload(spec.name))
+        peak = torch.cuda.max_memory_allocated()
+        total = {k: total[k] + ln[k] for k in counters}
+        n_sub = SCENE_PARAMS[spec.name].n_substeps
+        want = {"K1": T, "K2": 0 if kin else T * n_sub + settle,
+                "K3": T * n_sub + settle, "K4": 0}
+        finite_share = (watch.finite / watch.total).item()
+        finite = bool(w.finite.item()) and all(
+            torch.isfinite(x).all().item() for x in leaves(state)
+            if x.is_floating_point())
+        frozen = bool((dones[1:] | ~dones[:-1]).all().item())
+        eps = n_eps * T / secs
+        row[f"episode_steps_per_s_{mode}"] = eps
+        row[f"rollout_peak_mib_{mode}"] = peak / 2**20
+        log(f"vision {name} ({mode}): {n_params} parameters, trained "
+            f"{row['train_steps']} steps in {out['train_seconds']} s (peak "
+            f"{train_peak / 2**30:.2f} GiB); {n_eps} episodes x {T} steps "
+            f"in {secs:.2f} s = {eps:.1f} episode-steps/s (reset "
+            f"{reset_s:.2f} s, peak {peak / 2**30:.2f} GiB); at B = {n_eps}:"
+            f" render {render_ms:.2f} ms, encoder forward {enc_ms:.2f} ms, "
+            f"policy step {policy_ms:.2f} ms = "
+            f"{policy_ms / (secs / T * 1e3):.2%} of a step; finite actions "
+            f"{finite_share:.1%}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            + f"; max setpoint move {w.max_delta.item():.5f} m; launches "
+            f"{ln} expected {want} [{card}]")
+        bad = []
+        if finite_share < 1.0 or not finite:
+            bad.append(f"non-finite actions ({finite_share:.1%} finite) or "
+                       f"state")
+        if not frozen:
+            bad.append("done went back to false")
+        if w.max_delta.item() > 0.01 + 1e-6:
+            bad.append(f"setpoint moved {w.max_delta.item()} m in a step")
+        if not all(0.0 <= metrics[k] <= 1.0
+                   for k in ("success_rate", "entropy")):
+            bad.append(f"metrics out of [0, 1]: {metrics}")
+        if ln != want:
+            bad.append(f"launch counts {ln} != {want}")
+        problems += [f"{mode}: {b}" for b in bad]
+    return row, [f"vision {name}: {b}" for b in problems], total
+
+
+def vision_phase(counters, card):
+    """Phase 10: the vision path on VISION_TASK's 480 episodes (its
+    Params() from phase 5): the views checked, bc_vision trained with one
+    rollout selection eval, saved, reloaded and rolled out
+    VISION_STEPS_DYNAMIC + VISION_STEPS_KINEMATIC steps, then each of
+    VISION_AGENTS trained a few steps and rolled out VISION_AGENT_STEPS
+    dynamic steps. Returns the launches of every kernel summed over the
+    phase's rollouts."""
+    from d3il_tpu_torch import registry
+    spec = registry.TASKS[VISION_TASK]
+    params = SCENE_PARAMS[VISION_TASK]
+    problems = []
+    obs = vision_views(spec, params, card, problems)
+    n_ctx, n_traj, n_sel = VISION_SELECT
+    row, bad, launches = vision_agent(
+        "bc_vision", spec, params.q_init, obs, counters, card,
+        (("dynamic", False, VISION_STEPS_DYNAMIC),
+         ("kinematic", True, VISION_STEPS_KINEMATIC)),
+        epochs=VISION_EPOCHS, steps_per_epoch=VISION_STEPS_PER_EPOCH,
+        eval_every=VISION_EPOCHS, select_contexts=n_ctx,
+        select_trajs=n_traj, eval_max_steps=n_sel)
+    rows, problems = [row], problems + bad
+    if row["selected_epoch"] != VISION_EPOCHS:
+        problems.append(f"bc_vision: selected epoch {row['selected_epoch']}"
+                        f" != {VISION_EPOCHS} (one selection eval)")
+    for name in VISION_AGENTS:
+        row, bad, ln = vision_agent(
+            name, spec, params.q_init, obs, counters, card,
+            (("dynamic", False, VISION_AGENT_STEPS),), epochs=1,
+            steps_per_epoch=VISION_AGENT_TRAIN_STEPS, eval_every=2)
+        rows.append(row)
+        problems += bad
+        launches = {k: launches[k] + ln[k] for k in counters}
+    log(json.dumps({"vision": rows, "task": VISION_TASK, "card": card}))
+    if problems:
+        raise SystemExit("vision failed: " + "; ".join(problems))
+    return launches
+
+
 def demos_phase(counters, tols, card):
     """Phase 9: ``demo_case`` of each of DEMO_CASES. Returns the rows and
     the launches of every kernel summed over the cases."""
@@ -2020,8 +2269,12 @@ def main(kernels_only=False):
     scene_demos = lambda name: sum(r["launches"]["K3"] for r in demo_rows
                                    if name.endswith("_" + r["task"]))
 
-    # ---- phase 10: report -------------------------------------------------
+    # ---- phase 10: vision --------------------------------------------------
     log(f"phase 10: {since()}")
+    vision_launches = vision_phase(counters, card)
+
+    # ---- phase 11: report -------------------------------------------------
+    log(f"phase 11: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row
@@ -2033,12 +2286,15 @@ def main(kernels_only=False):
              launches_window_check=window_launches[kk["key"]],
              launches_eval_dynamic=eval_launches["dynamic"][kk["key"]],
              launches_eval_kinematic=eval_launches["kinematic"][kk["key"]],
-             launches_demos=demo_launches[kk["key"]])
+             launches_demos=demo_launches[kk["key"]],
+             launches_vision=vision_launches[kk["key"]])
         for kk in kernels if kk.get("report", True)] + [
         line(kk, launches=kk["launches_eval_dynamic"],
              launches_eval_dynamic=kk["launches_eval_dynamic"],
              launches_eval_kinematic=kk["launches_eval_kinematic"],
-             launches_demos=scene_demos(kk["name"]))
+             launches_demos=scene_demos(kk["name"]),
+             launches_vision=vision_launches["K3"]
+             if kk["name"].endswith("_" + VISION_TASK) else 0)
         for kk in rod_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

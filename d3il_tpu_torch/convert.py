@@ -224,6 +224,63 @@ def _beso(tree, out, device):
     _layer_norm(tree["LayerNorm_0"], "ln_f", out, device)
 
 
+def _conv(tree, prefix: str, out: dict, device) -> None:
+    """Flax Conv {kernel [kh, kw, in, out], bias} -> the port's SameConv
+    weight [out, in, kh, kw] (and bias where the layer has one)."""
+    _param(np.asarray(tree["kernel"], np.float32).transpose(3, 2, 0, 1),
+           prefix + ".weight", out, device)
+    if "bias" in tree:
+        _param(tree["bias"], prefix + ".bias", out, device)
+
+
+def _camera_encoder(tree, prefix: str, out: dict, device) -> None:
+    """Flax CameraEncoder (ResNet18_0/{Conv_0, GroupNorm_0, ResNetBlock_i/
+    {Conv_0, GroupNorm_0, Conv_1, GroupNorm_1, shortcut Conv_2,
+    GroupNorm_2}}, SpatialSoftmax_0/Conv_0, Dense_0) -> the port's
+    (trunk.{stem, stem_gn, blocks.i.{conv1, gn1, conv2, gn2, short,
+    short_gn}}, kp.conv, out)."""
+    rn = tree["ResNet18_0"]
+    _conv(rn["Conv_0"], prefix + "trunk.stem", out, device)
+    _layer_norm(rn["GroupNorm_0"], prefix + "trunk.stem_gn", out, device)
+    for i, blk in enumerate(_indexed(rn, "ResNetBlock")):
+        p = f"{prefix}trunk.blocks.{i}."
+        names = (("conv1", "gn1"), ("conv2", "gn2"), ("short", "short_gn"))
+        for j, (conv, gn) in enumerate(names):
+            if f"Conv_{j}" in blk:
+                _conv(blk[f"Conv_{j}"], p + conv, out, device)
+                _layer_norm(blk[f"GroupNorm_{j}"], p + gn, out, device)
+    _conv(tree["SpatialSoftmax_0"]["Conv_0"], prefix + "kp.conv", out, device)
+    _dense(tree["Dense_0"], prefix + "out", out, device)
+
+
+def _prefixed(fn, prefix: str):
+    """A tree converter writing its names under ``prefix``."""
+    def convert(tree, out, device):
+        part: dict = {}
+        fn(tree, part, device)
+        out.update({prefix + k: v for k, v in part.items()})
+    return convert
+
+
+def _vision(head: dict):
+    """A vision agent's tree: the shared encoder (``_VisionCore_0`` of the
+    compact modules, ``core`` of the setup ones) -> ``core.bp.`` /
+    ``core.ih.``, and ``head``: Flax subtree name ("": the whole tree, for
+    the compact modules' heads at its top) -> its converter."""
+    def convert(tree, out, device):
+        enc = tree.get("_VisionCore_0", tree.get("core"))
+        enc = enc["MultiImageObsEncoder_0"]
+        _camera_encoder(enc["CameraEncoder_0"], "core.bp.", out, device)
+        _camera_encoder(enc["CameraEncoder_1"], "core.ih.", out, device)
+        for name, fn in head.items():
+            fn(tree[name] if name else tree, out, device)
+    return convert
+
+
+def _rmlp(prefix: str):
+    return lambda t, o, d: _residual_mlp(t, prefix, o, d)
+
+
 # agent name -> (Flax parameter tree, out, device) writing the port's names
 _AGENT_TREES = {
     "bc": lambda t, o, d: _residual_mlp(t, "", o, d),
@@ -238,6 +295,21 @@ _AGENT_TREES = {
     "ddpm": _ddpm,
     "ddpm_encdec": _ddpm_encdec,
     "beso": _beso,
+    "bc_vision": _vision({"ResidualMLP_0": _rmlp("head.")}),
+    "bet_mlp_vision": _vision({"": _prefixed(_bet_mlp, "head.")}),
+    "gmm_vision": _vision({"": _prefixed(_gmm, "head.")}),
+    "ddpm_vision": _vision({
+        "temb": lambda t, o, d: _time_embed(t, "den.temb.", o, d),
+        "head": _rmlp("den.mlp.")}),
+    "cvae_vision": _vision({"enc": _rmlp("enc."), "dec": _rmlp("dec.")}),
+    "beso_vision": _vision({
+        "temb": lambda t, o, d: _time_embed(t, "score.temb.", o, d),
+        "head": _rmlp("score.mlp.")}),
+    "act_vision": _vision({"act": _prefixed(_act, "act.")}),
+    "ddpm_encdec_vision": _vision({"den": _prefixed(_ddpm_encdec, "den.")}),
+    "ibc_vision": _vision({"ebm": lambda t, o, d: _residual_mlp(
+        t["ResidualMLP_0"], "ebm.mlp.", o, d)}),
+    "gpt_bc_vision": _vision({"gpt": lambda t, o, d: _gpt(t, "gpt.", o, d)}),
 }
 PORTED_AGENTS = tuple(sorted(_AGENT_TREES))
 

@@ -117,6 +117,7 @@ class AgentSpec:
     cls: str
     ema_decay: float | None = None   # EMA tracking during fit
     needs_actions: bool = False      # k-means fit over all demo actions
+    vision: bool = False             # needs a task render_fn (vision/taskviews)
     defaults: dict = field(default_factory=dict)
 
     def make(self, generator, obs_dim, act_dim, scaler,
@@ -151,6 +152,22 @@ AGENTS: dict[str, AgentSpec] = _Ported("agent", {
                              "DDPMEncDecAgent", ema_decay=0.995),
     "beso": AgentSpec("beso", "d3il_tpu_torch.agents.beso", "BesoAgent",
                       ema_decay=0.995),
+    # vision variants: the shared MultiImageObsEncoder + method heads,
+    # rendering on the device from the state observations (agents/vision.py)
+    **{name: AgentSpec(name, "d3il_tpu_torch.agents.vision", cls, vision=True,
+                       **kw)
+       for name, cls, kw in (
+           ("bc_vision", "VisionBCAgent", {}),
+           ("ddpm_vision", "VisionDDPMAgent", {"ema_decay": 0.995}),
+           ("bet_mlp_vision", "VisionBeTAgent", {"needs_actions": True}),
+           ("gmm_vision", "VisionGMMAgent", {}),
+           ("cvae_vision", "VisionCVAEAgent", {}),
+           ("beso_vision", "VisionBesoAgent", {"ema_decay": 0.995}),
+           ("act_vision", "VisionACTAgent", {}),
+           ("gpt_bc_vision", "VisionGPTBCAgent", {}),
+           ("ibc_vision", "VisionIBCAgent", {}),
+           ("ddpm_encdec_vision", "VisionDDPMEncDecAgent",
+            {"ema_decay": 0.995}))},
 })
 
 

@@ -39,6 +39,7 @@ def load_agent(ckpt_path: str, device=None):
     # the per-(task, agent) overrides the run trained with (e.g. the
     # transformer backbone of pushing's beso)
     kw.update(meta.get("agent_extra", {}))
+    kw.update(run_train_torch.vision_kwargs(meta["task"], meta["agent"]))
     centers = ck.get("centers")
     agent, _ = registry.make_agent(
         meta["agent"], torch.Generator(device=device).manual_seed(0),

@@ -42,18 +42,29 @@ def agent_kwargs(name: str, window: int, hidden: int, layers: int,
     identically)."""
     registry.AGENTS[name]      # raises for an agent that is not ported
     kw = dict(window_size=window)
-    if name in ("bc", "cvae", "gmm", "ibc", "beso", "ddpm"):
+    if name in ("bc", "cvae", "gmm", "ibc", "beso", "ddpm") or \
+            name.endswith("_vision"):
         kw.update(hidden_dim=hidden, num_hidden_layers=layers)
-    if name in ("act", "ddpm_encdec"):
+    if name in ("act", "ddpm_encdec", "act_vision", "ddpm_encdec_vision"):
         kw["chunk"] = chunk
         if window != 1:
             print(f"warning: --window {window} has no effect for {name} "
                   "(single-obs chunk policies)")
-    if name in ("ddpm", "ddpm_encdec"):
+    if name in ("ddpm", "ddpm_encdec", "ddpm_vision", "ddpm_encdec_vision"):
         kw["n_timesteps"] = ddpm_steps
-    if name == "gpt_bc":
+    if name in ("gpt_bc", "gpt_bc_vision"):
         kw["window_size"] = max(window, 5)
     return kw
+
+
+def vision_kwargs(task: str, name: str) -> dict:
+    """A vision agent's task render_fn (both cameras at 96 x 96) and its
+    low-dim width; nothing for the state agents."""
+    if not registry.AGENTS[name].vision:
+        return {}
+    from d3il_tpu_torch.vision import taskviews
+    return {"render_fn": taskviews.make_render_obs(task),
+            "low_dim": taskviews.low_dim_size(task)}
 
 
 def build_agent_and_data(args, generator):
@@ -88,6 +99,7 @@ def build_agent_and_data(args, generator):
     extra = dict(spec.agent_kw.get(args.agent, {}))
     kw.update(extra)
     args.agent_extra = extra
+    kw.update(vision_kwargs(args.task, args.agent))
     acts_scaled = None
     if registry.AGENTS[args.agent].needs_actions:
         acts_scaled = scaler.scale_output(torch.as_tensor(y, device=device))
@@ -127,6 +139,25 @@ def make_args(**overrides) -> argparse.Namespace:
     return args
 
 
+def save_agent(args, agent):
+    """Checkpoint ``agent.params`` with what run_eval_torch.load_agent
+    rebuilds the agent from: the run's hyperparameters, the scaler and
+    BeT's bins."""
+    extra = {"meta": {
+        "task": args.task, "agent": args.agent, "seed": args.seed,
+        "window": args.window, "hidden": args.hidden,
+        "layers": args.layers, "chunk": args.chunk,
+        "ddpm_steps": args.ddpm_steps,
+        "agent_extra": getattr(args, "agent_extra", {}),
+        "scale_data": bool(agent.scaler.scale_data)},
+        "scaler": {k: v for k, v in agent.scaler._asdict().items()
+                   if k != "scale_data"}}
+    if hasattr(agent, "centers"):
+        extra["centers"] = agent.centers
+    agent_base.save_checkpoint(args.ckpt, agent.params, extra=extra)
+    print("checkpoint saved:", args.ckpt)
+
+
 def run_one(args) -> dict:
     """Train + evaluate one (task, agent, seed); returns the metrics row."""
     device = resolve_device(args.device)
@@ -149,21 +180,8 @@ def run_one(args) -> dict:
     print(f"training done in {train_seconds:.1f}s, "
           f"final loss {hist[-1]['train_loss']:.5f}")
     agent.params = best
-
     if args.ckpt:
-        extra = {"meta": {
-            "task": args.task, "agent": args.agent, "seed": args.seed,
-            "window": args.window, "hidden": args.hidden,
-            "layers": args.layers, "chunk": args.chunk,
-            "ddpm_steps": args.ddpm_steps,
-            "agent_extra": getattr(args, "agent_extra", {}),
-            "scale_data": bool(agent.scaler.scale_data)},
-            "scaler": {k: v for k, v in agent.scaler._asdict().items()
-                       if k != "scale_data"}}
-        if hasattr(agent, "centers"):
-            extra["centers"] = agent.centers
-        agent_base.save_checkpoint(args.ckpt, best, extra=extra)
-        print("checkpoint saved:", args.ckpt)
+        save_agent(args, agent)
 
     result = {}
     if not args.skip_eval:

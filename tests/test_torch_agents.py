@@ -320,16 +320,22 @@ def test_registry_names_what_is_ported():
     assert sorted(registry.TASKS) == ["aligning", "avoiding", "inserting",
                                       "pushing", "sorting_2", "sorting_4",
                                       "sorting_6", "stacking"]
-    assert sorted(registry.AGENTS) == ["act", "bc", "beso", "bet", "bet_mlp",
-                                       "cvae", "ddpm", "ddpm_encdec", "gmm",
-                                       "gpt_bc", "ibc", "lstm_gmm"]
+    state = ["act", "bc", "beso", "bet", "bet_mlp", "cvae", "ddpm",
+             "ddpm_encdec", "gmm", "gpt_bc", "ibc", "lstm_gmm"]
+    vision = ["act_vision", "bc_vision", "beso_vision", "bet_mlp_vision",
+              "cvae_vision", "ddpm_encdec_vision", "ddpm_vision",
+              "gmm_vision", "gpt_bc_vision", "ibc_vision"]
+    assert sorted(registry.AGENTS) == sorted(state + vision)
+    assert [n for n in sorted(registry.AGENTS)
+            if registry.AGENTS[n].vision] == vision
+    assert sorted(convert.PORTED_AGENTS) == sorted(state + vision)
     with pytest.raises(KeyError, match="ported.*pushing"):
         registry.TASKS["sorting_8"]
     with pytest.raises(KeyError, match="ported.*beso.*ddpm.*gmm.*lstm_gmm"):
-        registry.make_agent("ddpm_vision", None, OBS, ACT, None)
+        registry.make_agent("bet_vision", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):
-        registry.make_agent("bc_vision", None, OBS, ACT, None)
+        registry.make_agent("lstm_gmm_vision", None, OBS, ACT, None)
     with pytest.raises(KeyError, match="ported"):
-        convert.agent_params_from_numpy("bc_vision", {}, "cpu")
+        convert.agent_params_from_numpy("lstm_gmm_vision", {}, "cpu")
     assert registry.TASKS["pushing"].agent_kw == {
         "beso": {"backbone": "gpt", "window_size": 5}}

@@ -667,3 +667,37 @@ def test_pushing_expert_runner_on_the_card(cuda_device):
                            getattr(c0.env.scene, name)) <= 1e-3, name
     for a, b in zip(logs1, logs0):
         assert _scaled_err(a, b) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_vision_renderer_and_encoder_on_the_card(cuda_device):
+    """sorting_2's views (both cameras at res 96) of B = 4 observations
+    from a seed rendered on the card against the CPU: at least 99.8 % of
+    the pixels within 1e-5; then the MultiImageObsEncoder at its full width
+    on those images with the same weights on both (cuDNN convolutions, TF32
+    off): 1e-4 max-scaled."""
+    from d3il_tpu_torch.vision import encoder, taskviews
+    rng = np.random.default_rng(21)
+    B = 4
+    xy = rng.uniform([0.35, -0.25], [0.65, 0.25], (B, 4, 2))
+    tan = rng.uniform(-1.0, 1.0, (B, 2, 1))
+    obs = torch.from_numpy(np.concatenate(
+        [xy[:, :2].reshape(B, 4), np.concatenate([xy[:, 2:], tan], 2)
+         .reshape(B, 6)], 1).astype(np.float32))
+    render = taskviews.make_render_obs("sorting_2", 96)
+    want = render(obs)
+    got = render(obs.to(cuda_device))
+    for g, w in zip(got[:2], want[:2]):
+        agree = ((g.cpu() - w).abs() <= 1e-5).all(-1).float().mean()
+        assert agree >= 0.998, agree
+    assert torch.equal(got[2].cpu(), want[2])
+    enc = encoder.MultiImageObsEncoder(
+        generator=torch.Generator().manual_seed(0))
+    dev_enc = encoder.MultiImageObsEncoder(
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    dev_enc.load_state_dict(enc.state_dict())
+    with torch.no_grad():
+        f = enc(*want)
+        df = dev_enc(*(x.to(cuda_device) for x in want))
+    assert f.shape == (B, 2 * 64 + 4)
+    assert _scaled_err(df, f) <= 1e-4

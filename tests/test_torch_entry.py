@@ -193,9 +193,48 @@ def test_train_and_eval_rod_task(task, monkeypatch, tmp_path):
 def test_cli_rejects_what_is_not_ported():
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "run_train_torch.py"), "--agent",
-         "bc_vision", "--device", "cpu"], capture_output=True, text=True,
-        timeout=120)
+         "lstm_gmm_vision", "--device", "cpu"], capture_output=True,
+        text=True, timeout=120)
     assert r.returncode != 0 and "invalid choice" in r.stderr
+
+
+def test_vision_trains_selects_saves_and_reloads(small_task, tmp_path,
+                                                 capsys):
+    """run_vision_torch.py's CLI with --device cpu: bc_vision (96 x 96
+    images, heads 16 x 2) trained 2 epochs of 2 steps on data/pushing, a
+    rollout selection eval after each (1 context x 2 trajectories, 2
+    kinematic steps), then the final evaluation of the selected weights,
+    one JSON row; run_eval_torch.load_agent rebuilds the agent with its
+    render_fn from the checkpoint, and the same seed gives the same
+    metrics."""
+    import run_vision_torch
+    ckpt = str(tmp_path / "pushing_bc_vision.pt")
+    run_vision_torch.main([
+        "--task", "pushing", "--agent", "bc_vision", "--device", "cpu",
+        "--epochs", "2", "--eval-every", "1", "--steps-per-epoch", "2",
+        "--batch-size", "8", "--hidden", "16", "--layers", "2",
+        "--select-contexts", "1", "--select-trajs", "2", "--n-contexts", "1",
+        "--n-trajs", "2", "--eval-max-steps", "2", "--kinematic",
+        "--ckpt", ckpt, "--data", os.path.join(ROOT, "data")])
+    out = capsys.readouterr().out
+    assert out.count("[select] epoch") == 2
+    row = json.loads(out.strip().splitlines()[-1])
+    assert (row["task"], row["agent"], row["device"]) == \
+        ("pushing", "bc_vision", "cpu")
+    assert row["selected_epoch"] in (1, 2)
+    assert all(0.0 <= row[k] <= 1.0
+               for k in ("success_rate", "entropy", "score",
+                         "selected_success"))
+    spec, agent, meta = run_eval_torch.load_agent(ckpt, "cpu")
+    assert type(agent).__name__ == "VisionBCAgent" and meta["hidden"] == 16
+    bp, ih, low = agent.render_fn(torch.zeros((1, 10)))
+    assert bp.shape == ih.shape == (1, 96, 96, 3) and low.shape == (1, 4)
+    args = run_vision_torch.make_args(
+        task="pushing", device="cpu", n_contexts=1, n_trajs=2,
+        eval_max_steps=2, kinematic=True)
+    again = run_train_torch.evaluate(spec, agent, args)
+    for k in ("success_rate", "entropy", "score"):
+        assert again[k] == row[k], k
 
 
 @pytest.mark.parametrize("agent", ["bet_mlp", "ddpm"])

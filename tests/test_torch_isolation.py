@@ -2,7 +2,7 @@
 
 In a fresh interpreter with ``sys.modules["jax"] = None`` (so any
 ``import jax`` raises; likewise jaxlib, flax, optax, orbax), every module of
-d3il_tpu_torch and both entry scripts must import, and no ``d3il_tpu``
+d3il_tpu_torch and the three entry scripts must import, and no ``d3il_tpu``
 module may have been loaded; likewise tools/gen_demos_torch.py.
 chip_smoke.py and the entry scripts are also read for such imports, since
 chip_smoke.py imports the port only once it has found a card.
@@ -22,7 +22,7 @@ for banned in ("jax", "jaxlib", "flax", "optax", "orbax"):
 import d3il_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(d3il_tpu_torch.__path__,
                                                "d3il_tpu_torch.")]
-for name in names + ["run_train_torch", "run_eval_torch"]:
+for name in names + ["run_train_torch", "run_eval_torch", "run_vision_torch"]:
     importlib.import_module(name)
 import importlib.util
 spec = importlib.util.spec_from_file_location("gen_demos_torch",
@@ -38,7 +38,9 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "agents.ddpm", "agents.ddpm_encdec", "agents.beso",
              "data.experts", "data.gen_demos", "eval.metrics",
              "eval.contexts",
-             "eval.rollout", "eval.sims", "registry", "convert"):
+             "eval.rollout", "eval.sims", "registry", "convert",
+             "vision.renderer", "vision.taskviews", "vision.encoder",
+             "agents.vision"):
     assert "d3il_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
@@ -56,12 +58,13 @@ def test_port_imports_without_jax():
 
 
 def test_scripts_name_no_jax_module():
-    """Every import statement of chip_smoke.py, the two entry scripts and
+    """Every import statement of chip_smoke.py, the three entry scripts and
     the demo CLI, wherever it stands in the file."""
     import ast
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "d3il_tpu"}
     for script in ("chip_smoke.py", "run_train_torch.py",
-                   "run_eval_torch.py", "tools/gen_demos_torch.py"):
+                   "run_eval_torch.py", "run_vision_torch.py",
+                   "tools/gen_demos_torch.py"):
         with open(os.path.join(ROOT, script)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
@@ -110,6 +113,10 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
         run_train_torch.run_one(run_train_torch.make_args(agent="gmm"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_eval_torch.load_agent("missing.pt")
+    import run_vision_torch
+    assert run_vision_torch.make_args().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_vision_torch.run(run_vision_torch.make_args())
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "gen_demos_torch", os.path.join(ROOT, "tools", "gen_demos_torch.py"))

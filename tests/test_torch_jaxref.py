@@ -202,6 +202,27 @@ def tiny_agents(name, obs_dim=10, act_dim=2, hidden=16, layers=2, seed=0,
     return jagent, agent
 
 
+def flax_params(shapes, seed):
+    """A Flax parameter tree of ``shapes`` (``jax.eval_shape`` of a
+    module's init: no XLA compile) filled from a NumPy seed: kernels of
+    std 1 / sqrt(fan_in), GroupNorm / LayerNorm scales 1 + N(0, 0.1^2),
+    everything else (biases, position embeddings, query tokens) of std
+    0.05, so that a misplaced scale or bias shows."""
+    import math
+    import jax
+    rng = np.random.default_rng(seed)
+
+    def one(path, s):
+        name = path[-1].key
+        if name == "scale":
+            return (1 + 0.1 * rng.normal(size=s.shape)).astype(np.float32)
+        std = 1 / math.sqrt(np.prod(s.shape[:-1])) if name == "kernel" \
+            else 0.05
+        return (std * rng.normal(size=s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(one, shapes)
+
+
 def runner_noise(keys, steps, dim):
     """The unit normals a JAX expert runner draws for its exploration noise,
     [steps, B, dim]: each env's carry key split once per step (``key, kn =

@@ -8,7 +8,11 @@ packages' windows.
     python run_eval_torch.py --ckpt build/av_jax.pt --n-trajs 48 --seed 1
 
 Runs on the CPU (the JAX checkpoint is an orbax tree); the output is a
-plain ``torch.save`` file, read anywhere the port runs.
+plain ``torch.save`` file, read anywhere the port runs. Every agent of
+``convert.PORTED_AGENTS`` converts, the ten vision agents too (e.g.
+``run_train.py --task sorting_2 --agent bc_vision``); run_eval_torch.py
+rebuilds their render_fn from the task. run_vision.py's checkpoints hold
+the weights alone, without the run's metadata, and do not convert.
 """
 import argparse
 import os
