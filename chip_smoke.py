@@ -4,12 +4,15 @@
 Run from the repo root on a machine with one NVIDIA GPU and the CUDA
 toolkit: ``python3 chip_smoke.py``. Imports nothing of JAX or d3il_tpu.
 
-``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone (no
-general-variant scene, no launch-geometry line: only the wrappers' own
-signatures are used) and prints the ``kernels`` line without launches. The
-same file copied into a checkout of an earlier commit times that commit's
-kernels, so runs of both checkouts in turns (old, new, new, old) in one
-call compare two designs on one card.
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone, and
+K3 held and timed on the substep phases 5-7 hold it on for avoiding and
+each general scene (GENERAL_SCENES, each through its Params() at full
+width; no launch-geometry line: only the wrappers' own signatures,
+ContactTables(meta, device) and phase_batched_bm(tables, *args), are
+used), and prints the ``kernels`` line without launches. The same file
+copied into a checkout of an earlier commit times that commit's kernels,
+so runs of both checkouts in turns (old, new, new, old) in one call
+compare two designs on one card.
 
 Phases (each fatal on failure):
   1. device check; build the kernels from csrc/ (one nvcc per source, in
@@ -21,7 +24,8 @@ Phases (each fatal on failure):
      scene, inputs from a real reset + 2 steps; K4 runs on K1's own window,
      at [7, 8192] and folded to [7, 35 * 8192], and is also held against
      K1's tau_model; K3's general variant on a 66-row scene cut from the
-     same inputs; print the scaled errors against the tolerances and the
+     same inputs (timed, with ``k3_report``'s figures); print the scaled
+     errors against the tolerances and the
      median kernel / plain times (CUDA events around one launch on an idle
      device: ``ms``, which includes the host's submission of the launch;
      and with a sleep kernel queued ahead, so that the events bracket
@@ -59,7 +63,14 @@ Phases (each fatal on failure):
      next substep's inputs (avoiding: the register variant with no free
      body, nf = 0; the others: the general variant), K2 too on avoiding,
      aligning and sorting_2 (one per start pose), K3 timed there with its
-     bound and roofline share; on avoiding, a failure unless the rod's row
+     bound and roofline share; on a general scene ``k3_report``: the
+     active contacts per env, the envs each path of the compact variant
+     takes, the bound over every row and over the active rows with the
+     roofline share against each, envs per block, blocks per SM and waves;
+     on PATHS_SCENE (sorting_6) also the held batch cut so that its envs
+     take every path, the global workspace included
+     (``compact_paths_kernel``: held, timed, f exactly 0 on every inactive
+     contact); on avoiding, a failure unless the rod's row
      against the first obstacle carries force in 99 % of the envs; a gmm agent trained on the card on
      data/<task> (epochs cut to ROD_EPOCHS) and rolled out through the
      task's Sim in both modes at a cut horizon (its steps timed apart from
@@ -68,7 +79,7 @@ Phases (each fatal on failure):
      35 x steps + the reset's hold substeps, no K2 in kinematic mode) and,
      on aligning and sorting_2, a bc rollout that repeats exactly; prints
      episode-steps/s and one profiled dynamic step per task (device busy
-     share, launches per substep);
+     share, launches per substep, K3's device time in the step);
   6. stacking: StackingParams() at full width (30 substeps, 40 solver
      iterations, the gripper chain), its 1,080-episode batch (60 shipped
      contexts x 18) reset with each red box then pressed by a finger's tip
@@ -86,9 +97,8 @@ Phases (each fatal on failure):
      reference workload (240 episodes, contexts from seed 2), the hold scene
      the reset with each env's rod pressing its red box 1 mm into a maze
      wall (``rod_pressing_box``): K1 (the window of a setpoint 1 cm
-     further toward the wall), K2 and K3's general variant (207,288 B of shared memory per env, one env
-     per block) held, K3 timed, its shared memory per env and block, blocks
-     per SM and waves printed, a failure unless the box-wall row carries
+     further toward the wall), K2 and K3's general variant held, K3 timed
+     with ``k3_report``'s figures, a failure unless the box-wall row carries
      force in 99 % of the envs; gmm trained INSERT_EPOCHS epochs on
      data/inserting and rolled out INSERT_STEPS_DYNAMIC dynamic and
      INSERT_STEPS_KINEMATIC kinematic steps with phase 5's checks; one
@@ -136,8 +146,10 @@ Phases (each fatal on failure):
      functions (VISION_EPOCHS epochs of VISION_STEPS_PER_EPOCH steps, one
      rollout selection eval at the end), saved, reloaded through
      run_eval_torch.load_agent and rolled out VISION_STEPS_DYNAMIC dynamic
-     + VISION_STEPS_KINEMATIC kinematic steps; then each of VISION_AGENTS
-     trained VISION_AGENT_TRAIN_STEPS steps, reloaded and rolled out
+     + VISION_STEPS_KINEMATIC kinematic steps, K2 and K3 held on the
+     inputs of their last calls there at the tolerances of phase 2; then
+     each of VISION_AGENTS trained VISION_AGENT_TRAIN_STEPS steps, reloaded
+     and rolled out
      VISION_AGENT_STEPS dynamic step; per agent: parameters, train
      seconds, episode-steps/s, render, encoder-forward and policy-step ms
      at B = 480 (CUDA events), peak device memory in training and in the
@@ -149,7 +161,8 @@ Phases (each fatal on failure):
  11. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
      ``launches_demos``, ``launches_vision`` (phase 10's rollouts; on the
-     K3 rows, sorting_2's alone), and one K3 row per scene of phases 5-7),
+     K3 rows, sorting_2's alone), and one K3 row per scene of phases 5-7,
+     a general scene's with ``k3_report``'s figures),
      the card line, and last {"ok": true, "device": {...}}.
 """
 import json
@@ -189,7 +202,7 @@ STACK_CONTEXTS, STACK_TRAJS = 60, 18    # stacking's reference workload: 1,080
 STACK_EPOCHS = 5                        # of the registry's 100
 STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 2, 2   # of 1,000
 INSERT_EPOCHS = 5                       # of the registry's 100
-INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 2, 2  # of InsertingSim's 400
+INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 2, 2   # of InsertingSim's 400
 # the agents driven on the pushing evaluation path at their registry
 # defaults, beside gmm (phase 4)
 AGENTS = ("gpt_bc", "bet", "bet_mlp", "act", "cvae", "lstm_gmm", "ibc",
@@ -230,6 +243,15 @@ VISION_AGENT_STEPS = 1
 VISION_CPU_ENVS = 8     # views rendered on the CPU too, held to the card's
 # the Params() each scene's phase built (3, 5-7), reused by the demo phase
 SCENE_PARAMS = {}
+# ptxas's registers per thread of each kernel, from phase 1's build log
+PTXAS_REGS = {}
+# the scenes of K3's general variant, on which phases 5-7 hold it
+# (--kernels-only holds and times K3 on each alone)
+GENERAL_SCENES = ("aligning", "sorting_2", "sorting_4", "sorting_6",
+                  "stacking", "inserting")
+# the scene whose held batch is also cut into every path of the compact
+# variant, the global workspace included (``compact_paths_kernel``)
+PATHS_SCENE = "sorting_6"
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
@@ -635,14 +657,18 @@ def hold_kernel(k, card, failed, timed=True):
     # forms some twice (k["ops"])
     ops = k["ops"]() if "ops" in k else count_ops(k["plain"])
     byt = nbytes(k["ins"]) + nbytes(k["out"])
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, byt / PEAK_BYTES * 1e3
-    k["bound_ms"] = max(t_ops, t_bytes)
-    k["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    k["bound_ms"], k["bound_by"] = bound_of(ops, byt)
     more = (f"; the plain version does {count_ops(k['plain']):.3e}"
             if "ops" in k else "")
+    if "meta" in k:     # K3 (``meta``: its scene): also each env's active
+        act_ops, act_byt = active_work(k["meta"], k["ins"], k["out"])
+        k["bound_active_ms"], k["bound_active_by"] = bound_of(act_ops,
+                                                              act_byt)
+        more = (f"; active rows {act_ops:.3e} flop, {act_byt:.3e} B, bound "
+                f"{k['bound_active_ms']:.5f} ms ({k['bound_active_by']})")
     log(f"{k['key']} {k['name']}: kernel {k['ms']:.4f} ms (device "
         f"{k['device_ms']:.4f} ms), plain "
-        f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+        f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.5f} ms "
         f"({k['bound_by']}: {ops:.3e} flop{more}, {byt:.3e} B) [{card}]")
 
 
@@ -715,7 +741,7 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
         f"steps): {active:.1f} contacts with depth > 0 per env, rod-box contact "
         f"force in {rod:.1%} of envs, max |v_all| {k3_in[6].abs().max():.3f}")
     recs.append(dict(name=f"contact_phase_b{n}_{mode}", key="K3", out=k3_out,
-                     ins=k3_in, reps=(20, 3),
+                     ins=k3_in, reps=(20, 3), meta=st.meta,
                      run=lambda: contact_kernel.phase_batched_bm(st.contact,
                                                                  *k3_in),
                      plain=lambda: contact_kernel.phase_plain(st.meta, *k3_in),
@@ -732,17 +758,190 @@ def general_scene_kernel(st, k3_in, tols):
     idx = list(range(st.meta.ncon)) + [12, 13, 5, 6]
     meta = contact.select_contacts(st.meta, idx)
     tables = contact_kernel.ContactTables(meta, k3_in[0].device)
-    if tables.geometry.variant != 2:
+    geo = k3_geometry(tables, k3_in[0].shape[-1])
+    if geo.variant != 2:
         raise SystemExit(f"a 66-row scene should take the general variant: "
-                         f"{tables.geometry}")
+                         f"{geo}")
     t = torch.as_tensor(idx, device=k3_in[0].device)
     ins = tuple(a[t].contiguous() if i in (0, 1, 2, 10) else a
                 for i, a in enumerate(k3_in))  # pts, normal, depth, warm
     run = lambda: contact_kernel.phase_batched_bm(tables, *ins)
     return dict(name="contact_phase_66_rows", key="K3", report=False,
-                timed=False, out=run(), ins=ins, run=run,
+                tables=tables, meta=meta, out=run(), ins=ins, run=run,
+                reps=(20, 3),
                 plain=lambda: contact_kernel.phase_plain(meta, *ins),
                 names=("f", "qfrc"), tols=tols)
+
+
+def k3_geometry(tables, B):
+    """K3's launch geometry for a batch of B envs: ContactTables.geometry
+    is a method of the batch since the compact design, an attribute of the
+    scene before it (a checkout of an earlier commit)."""
+    g = tables.geometry
+    return g(B) if callable(g) else g
+
+
+def bound_of(n_ops, n_bytes):
+    """(ms, "operations" or "bytes"): the least time for n_ops float32
+    operations and n_bytes moved, the larger of the two."""
+    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def active_work(meta, ins, out):
+    """(operations, bytes) of K3 on each env's active contacts (depth >
+    0) alone, summed over the batch. Operations: the plain version's on
+    each env's scene cut to them; the count depends on the shapes alone,
+    so it is taken once per distinct active count, on the first env with
+    that count; an env with none needs none. Bytes: depth, f and qfrc of
+    every env, the per-env inputs of the envs with an active contact, and
+    pts, normal and warm of the active contacts only."""
+    import torch
+    from d3il_tpu_torch.engine import contact, contact_kernel
+    n_act = (ins[2] > 0).sum(0)
+    B = n_act.shape[0]
+    per_contact = (0, 1, 10)    # pts, normal, warm: [ncon, 3, B]
+    byt = (nbytes((ins[2],) + tuple(out))
+           + nbytes(ins[3:10]) * int((n_act > 0).sum()) // B
+           + int(n_act.sum()) * sum(ins[i][0, :, 0].numel()
+                                    * ins[i].element_size()
+                                    for i in per_contact))
+    total = 0
+    counts = torch.bincount(n_act).tolist()
+    for n, envs in enumerate(counts):
+        if n == 0 or envs == 0:
+            continue
+        e = int(torch.nonzero(n_act == n)[0, 0])
+        idx = torch.nonzero(ins[2][:, e] > 0)[:, 0]
+        cut = [x[..., e:e + 1].contiguous() for x in ins]
+        for i in (0, 1, 2, 10):     # pts, normal, depth, warm
+            cut[i] = cut[i][idx].contiguous()
+        meta_e = contact.select_contacts(meta, idx.cpu().numpy())
+        total += envs * count_ops(
+            lambda: contact_kernel.phase_plain(meta_e, *cut))
+    return total, byt
+
+
+def k3_residency(geo, B):
+    """(blocks per SM, waves) of a K3 launch of B envs on this card: the
+    fewest of what shared memory (with CUDA's reservation per block),
+    ptxas's registers and the SM's warp and block limits allow."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = geo.envs_per_block
+    name = {1: "contact_phase_reg_kernel"}.get(
+        geo.variant, "contact_phase_compact_kernel"
+        if "contact_phase_compact_kernel" in PTXAS_REGS
+        else "contact_phase_general_kernel")
+    regs = PTXAS_REGS.get(name)
+    per_sm = min(SM_SHARED_BYTES // (geo.smem_per_block
+                                     + BLOCK_RESERVED_BYTES),
+                 64 // warps, 32)
+    if regs:    # registers are allocated per warp in units of 256
+        per_sm = min(per_sm, 65536 // (-(-regs * 32 // 256) * 256 * warps))
+    blocks = -(-B // warps)
+    return per_sm, -(-blocks // (per_sm * n_sm))
+
+
+def k3_report(k, tables, card):
+    """For a K3 record held and timed by hold_kernel on a scene of the
+    general variant: the active contacts per env (min / mean / max), the
+    envs each path of the compact variant takes (none active, the register
+    form's 56 rows, the factored form in shared memory up to the cap, the
+    global workspace above it; "n/a" for a design without them), the
+    bound both ways (every row, ``bound_ms``, and each env's active rows,
+    ``bound_active_ms``) with the roofline share against each, and the
+    launch's envs per block, blocks per SM and waves. Adds them to the
+    record."""
+    meta = tables.meta
+    n_act = (k["ins"][2] > 0).sum(0)
+    B = n_act.shape[0]
+    geo = k3_geometry(tables, B)
+    cap = getattr(geo, "cap", None)
+    reg = (n_act > 0) & (3 * n_act <= 56)
+    paths = {"none": int((n_act == 0).sum()), "register": int(reg.sum())}
+    if cap is None:
+        paths.update(shared="n/a", workspace="n/a")
+    else:
+        paths.update(shared=int(((3 * n_act > 56) & (n_act <= cap)).sum()),
+                     workspace=int((n_act > cap).sum()))
+    per_sm, waves = k3_residency(geo, B)
+    k["active_contacts"] = dict(min=int(n_act.min()),
+                                mean=float(n_act.float().mean()),
+                                max=int(n_act.max()))
+    k.update(paths=paths, cap=cap, envs_per_block=geo.envs_per_block,
+             smem_per_block=geo.smem_per_block, blocks_per_sm=per_sm,
+             waves=waves)
+    a = k["active_contacts"]
+    log(f"{k['key']} {k['name']} at B = {B}: active contacts per env "
+        f"{a['min']} / {a['mean']:.2f} / {a['max']} of {meta.ncon} (min / "
+        f"mean / max); envs per path {paths} (cap {cap}); kernel "
+        f"{k['ms']:.4f} ms (device {k['device_ms']:.4f} ms); bound every "
+        f"row {k['bound_ms']:.5f} ms ({k['bound_by']}), active rows "
+        f"{k['bound_active_ms']:.5f} ms ({k['bound_active_by']}); "
+        f"roofline share {k['bound_ms'] / k['device_ms']:.2%} / "
+        f"{k['bound_active_ms'] / k['device_ms']:.2%}; "
+        f"{geo.smem_per_env} B of shared memory per env, "
+        f"{geo.smem_per_block} B per block, {geo.envs_per_block} envs per "
+        f"block, {per_sm} blocks per SM, {waves} wave(s) [{card}]")
+
+
+def compact_paths_kernel(k, tables, tols):
+    """K3 on the held batch ``k`` cut so that its envs take every path of
+    the compact variant: by env modulo 6, no active contact, one, five
+    (the register form), the scene's own (the factored form in shared
+    memory), exactly the cap (inactive contacts set to 1 mm depth), and
+    every contact at 1 mm (above the cap: the global workspace). Returns
+    the record for hold_kernel, timed (the workspace envs' chain bounds
+    it)."""
+    import torch
+    from d3il_tpu_torch.engine import contact_kernel
+    meta = tables.meta
+    cap = getattr(k3_geometry(tables, k["ins"][2].shape[-1]), "cap",
+                  meta.ncon // 2)
+    depth = k["ins"][2].clone()
+    for e in range(depth.shape[1]):
+        act = torch.nonzero(depth[:, e] > 0)[:, 0]
+        kind = e % 6
+        if kind < 3:
+            depth[act[(0, 1, 5)[kind]:], e] = -1e-3
+        elif kind == 4:
+            free = torch.nonzero(depth[:, e] <= 0)[:, 0]
+            depth[free[:max(cap - len(act), 0)], e] = 1e-3
+        elif kind == 5:
+            depth[:, e] = 1e-3
+    ins = k["ins"][:2] + (depth,) + k["ins"][3:]
+    run = lambda: contact_kernel.phase_batched_bm(tables, *ins)
+    out = run()
+    launch = getattr(contact_kernel, "_launch", None)
+    if launch is not None:
+        # a launch into outputs filled with NaN first: every element,
+        # inactive contacts' f included, must come from the kernel
+        out = tuple(torch.full_like(o, float("nan")) for o in out)
+        launch(tables, ins, *out)
+    return dict(name=k["name"] + "_every_path", key="K3", out=out,
+                ins=ins, run=run, reps=(5, 1), tables=tables, meta=meta,
+                plain=lambda: contact_kernel.phase_plain(meta, *ins),
+                names=("f", "qfrc"), tols=tols)
+
+
+def hold_general_k3(k, card, failed):
+    """hold_kernel (timed) and k3_report of a K3 record on a general
+    scene; on PATHS_SCENE also its ``compact_paths_kernel`` batch, whose f
+    must be exactly 0 on every inactive contact."""
+    hold_kernel(k, card, failed)
+    k3_report(k, k["tables"], card)
+    if not k["name"].endswith("_" + PATHS_SCENE):
+        return
+    kp = compact_paths_kernel(k, k["tables"], k["tols"])
+    hold_kernel(kp, card, failed)
+    k3_report(kp, kp["tables"], card)
+    zero = bool((kp["out"][0].movedim(1, -1)[kp["ins"][2] <= 0] == 0).all())
+    log(f"{kp['key']} {kp['name']}: f exactly 0 on every inactive contact: "
+        f"{zero}")
+    if not zero:
+        failed.append(f"{kp['name']}.inactive_f")
 
 
 def setup_launch(params, card):
@@ -862,6 +1061,7 @@ def main_path_kernels(params, dev):
              run=lambda: contact_kernel.phase_batched_bm(st.contact, *k3_in),
              plain=lambda: contact_kernel.phase_plain(st.meta, *k3_in),
              ins=k3_in, out=k3_out, reps=(20, 3), names=("f", "qfrc"),
+             meta=st.meta,
              # test_contact_kernel.py:116-117
              tols=(2e-4, 2e-4)),
         dict(name="feedforward_b8192", key="K4", route="cuda", report=False,
@@ -1051,13 +1251,17 @@ def contact_records(spec, params, sb, k2_in, what, tols):
     log(f"{spec.name} substep (B = {n}, {what}): {active:.1f} of "
         f"{st.meta.ncon} contacts with depth > 0 per env, {loaded:.1f} "
         f"carrying force")
-    variant = "register" if st.contact.geometry.variant == 1 else "general"
+    variant = ("register" if k3_geometry(st.contact, n).variant == 1
+               else "general")
     k3 = dict(name=f"contact_phase_{variant}_{spec.name}", key="K3",
-              route="cuda", design=f"{variant} variant, "
-              + ("second design" if variant == "register" else "first design"),
+              route="cuda", design=("register variant, PR 3"
+                                    if variant == "register" else
+                                    "general variant, PR 10: active "
+                                    "contacts compacted"),
               source="d3il_tpu_torch/csrc/contact_kernel.cu",
               replaces="d3il_tpu/engine/contact_kernel.py:345",
-              out=k3_out, ins=k3_in, reps=(10, 3),
+              out=k3_out, ins=k3_in, reps=(10, 3), tables=st.contact,
+              meta=st.meta,
               run=lambda: contact_kernel.phase_batched_bm(st.contact, *k3_in),
               plain=lambda: contact_kernel.phase_plain(st.meta, *k3_in),
               names=("f", "qfrc"), tols=tols["K3"])
@@ -1094,11 +1298,13 @@ def profile_rod_step(spec, params, state, hold, card, top=False):
         log(f"{spec.name} step profile: not measured (the trace holds no "
             f"device time)")
         return
+    k3 = [us for name, us in dev if "contact_phase" in name]
     log(f"{spec.name} step profile at B = {hold.shape[0]}: wall "
         f"{wall_us / 1e3:.1f} ms (profiler on), device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}), {len(dev)} "
         f"device activities = {len(dev) / params.n_substeps:.0f} per "
-        f"substep [{card}]")
+        f"substep; K3 {sum(k3) / 1e3:.3f} ms in {len(k3)} launches "
+        f"({sum(k3) / busy_us:.1%} of device busy) [{card}]")
     if top:
         top_device_time(dev)
 
@@ -1122,29 +1328,22 @@ def rod_task(task, counters, tols, card, failed, problems):
     params = SCENE_PARAMS[task] = spec.make_params(device="cuda")
     torch.cuda.synchronize()
     meta, n_sub = params.statics.meta, params.n_substeps
-    geo = params.statics.contact.geometry
+    geo = params.statics.contact.geometry(n_eps)
     log(f"{task}: params {time.perf_counter() - t0:.1f} s; "
         f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
         f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
-        f"iterations; K3 {geo}")
+        f"iterations; K3 at B = {n_eps} {geo}")
     k3, k2, k1 = rod_substep_kernels(spec, params, tols)
     if task == "inserting":
         hold_kernel(k1, card, failed, timed=False)
     if task in ROD_K2_TASKS:
         hold_kernel(k2, card, failed, timed=False)
-    hold_kernel(k3, card, failed)
+    if geo.variant == 1:
+        hold_kernel(k3, card, failed)
+    else:
+        hold_general_k3(k3, card, failed)
     log(f"{task} K3 ({k3['name']}) at B = {n_eps}: roofline share "
         f"{k3['bound_ms'] / k3['device_ms']:.2%} [{card}]")
-    if task == "inserting":
-        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        per_sm = SM_SHARED_BYTES // (geo.smem_per_block
-                                     + BLOCK_RESERVED_BYTES)
-        blocks = -(-n_eps // geo.envs_per_block)
-        log(f"inserting K3 launch: {geo.smem_per_env} B of shared memory "
-            f"per env, {geo.smem_per_block} B per block, "
-            f"{geo.envs_per_block} env(s) per block, {per_sm} block(s) per "
-            f"SM on {n_sm} SMs: {blocks} blocks in "
-            f"{-(-blocks // (per_sm * n_sm))} waves")
     loaded = {"avoiding": ("the rod-obstacle row",
                            lambda p: p.geom_b.name == "l1_obs"),
               "inserting": ("the red box-maze_9 row", is_box_wall)}
@@ -1285,6 +1484,43 @@ def loaded_share(f, rows):
     return (f[rows].abs().amax(dim=(0, 1)) > 1e-3).float().mean().item()
 
 
+def stacking_records(spec, params, tols):
+    """K2 (the grasp law on: width 0, grasp flag set) and K3 on the first
+    substep of a joint-window hold of stacking's 1,080-episode batch with
+    a finger pressing a box (``stacking_check_scene``): the records of
+    ``contact_records``."""
+    import torch
+    from d3il_tpu_torch.engine import substep_bm
+    sc = stacking_check_scene(params, spec.env())
+    sb = substep_bm.scene_to_bm(sc)
+    n_eps = sb.q.shape[-1]
+    zeros = torch.zeros_like(sb.q[:7])
+    k2_in = (sb.q, sb.qd, sb.q[:7].contiguous(), zeros, zeros,
+             torch.zeros(n_eps, device=params.device),
+             torch.ones(n_eps, dtype=torch.bool, device=params.device))
+    return contact_records(
+        spec, params, sb, k2_in, "after the reset, the red box pressed by "
+        "a finger's tip pad; the gripper closing under the grasp force",
+        tols)
+
+
+def scene_records(tols):
+    """--kernels-only: avoiding (K3's register variant with no free body)
+    and each of GENERAL_SCENES through its Params() at full width, and
+    K3's record on the substep phases 5-7 hold it on
+    (``rod_substep_kernels``, ``stacking_records``), through ContactTables
+    and phase_batched_bm alone."""
+    from d3il_tpu_torch import registry
+    recs = []
+    for task in ("avoiding",) + GENERAL_SCENES:
+        spec = registry.TASKS[task]
+        params = spec.make_params(device="cuda")
+        recs.append((stacking_records(spec, params, tols) if task ==
+                     "stacking" else rod_substep_kernels(spec, params,
+                                                         tols))[0])
+    return recs
+
+
 def stacking_task(counters, tols, card):
     """Phase 6: stacking through StackingParams() at full width (30
     substeps, 40 solver iterations, the gripper chain), K2 (the grasp law
@@ -1309,20 +1545,12 @@ def stacking_task(counters, tols, card):
     log(f"stacking: params {time.perf_counter() - t0:.1f} s; "
         f"{len(params.scene.pairs)} contact pairs, {meta.ncon} contacts, "
         f"{3 * meta.ncon} rows, nv {meta.nv}, {meta.n_iters} solver "
-        f"iterations, {params.scene.robot.nb} bodies in the chain; K3 "
-        f"{params.statics.contact.geometry}")
-    sc = stacking_check_scene(params, env)
-    sb = substep_bm.scene_to_bm(sc)
-    zeros = torch.zeros_like(sb.q[:7])
-    k2_in = (sb.q, sb.qd, sb.q[:7].contiguous(), zeros, zeros,
-             torch.zeros(n_eps, device=params.device),
-             torch.ones(n_eps, dtype=torch.bool, device=params.device))
-    k3, k2 = contact_records(
-        spec, params, sb, k2_in, "after the reset, the red box pressed by "
-        "a finger's tip pad; the gripper closing under the grasp force",
-        tols)
+        f"iterations, {params.scene.robot.nb} bodies in the chain; K3 at "
+        f"B = {STACK_CONTEXTS * STACK_TRAJS} "
+        f"{params.statics.contact.geometry(STACK_CONTEXTS * STACK_TRAJS)}")
+    k3, k2 = stacking_records(spec, params, tols)
     hold_kernel(k2, card, failed, timed=False)
-    hold_kernel(k3, card, failed)
+    hold_general_k3(k3, card, failed)
     f, qfrc = k3["out"]
     fingers = loaded_share(f, pair_rows(params.scene, is_finger_box))
     log(f"stacking: a finger-box row carries force in {fingers:.1%} of "
@@ -1603,16 +1831,17 @@ class KernelInputs:
 
 def demo_kernel_records(args, label, tols, with_k1):
     """K1 (``with_k1``), K2 and K3 held on the inputs of their last call in
-    a demo step (``args`` from KernelInputs), where the step launched them:
-    each wrapper called again on them against its plain version. Returns
-    the records for hold_kernel."""
+    a demo step or a rollout (``args`` from KernelInputs), where it
+    launched them: each wrapper called again on them against its plain
+    version, the records named with ``label``. Returns the records for
+    hold_kernel."""
     import torch
     from d3il_tpu_torch.engine import contact_kernel, dyn_kernel
     recs = []
     if with_k1 and "K1" in args:
         a = args["K1"]
         recs.append(dict(
-            name=f"ik_window_b{a[2].shape[-1]}_demos_{label}", key="K1",
+            name=f"ik_window_b{a[2].shape[-1]}_{label}", key="K1",
             out=dyn_kernel.ik_window_bm(*a),
             plain=lambda a=a: dyn_kernel.ik_window_plain(*a),
             names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
@@ -1620,7 +1849,7 @@ def demo_kernel_records(args, label, tols, with_k1):
     if "K2" in args:
         a = args["K2"]
         recs.append(dict(
-            name=f"arm_stage_b{a[1].shape[-1]}_demos_{label}", key="K2",
+            name=f"arm_stage_b{a[1].shape[-1]}_{label}", key="K2",
             out=dyn_kernel.arm_stage_bm(*a),
             plain=lambda a=a: dyn_kernel.arm_stage_plain(
                 *a[:7], a[7].to(torch.float32)),
@@ -1628,7 +1857,7 @@ def demo_kernel_records(args, label, tols, with_k1):
                    "a_arm"), tols=tols["K2"]))
     a = args["K3"]
     recs.append(dict(
-        name=f"contact_phase_b{a[3].shape[-1]}_demos_{label}", key="K3",
+        name=f"contact_phase_b{a[3].shape[-1]}_{label}", key="K3",
         out=contact_kernel.phase_batched_bm(*a),
         plain=lambda a=a: contact_kernel.phase_plain(a[0].meta, *a[1:]),
         names=("f", "qfrc"), tols=tols["K3"]))
@@ -1711,7 +1940,8 @@ def demo_case(task, kinematic, T, counters, tols, card):
         t4 = time.perf_counter()
     failed = []
     kerr = {}
-    for k in demo_kernel_records(seen.args, label.replace(" ", "_"), tols,
+    for k in demo_kernel_records(seen.args,
+                                 "demos_" + label.replace(" ", "_"), tols,
                                  (task, kinematic) == DEMO_K1_CASE):
         hold_kernel(k, card, failed, timed=False)
         kerr[k["key"]] = k["max_abs_err"]
@@ -1920,11 +2150,12 @@ def vision_agent(name, spec, q_init, obs, counters, card, steps, **train):
     return row, [f"vision {name}: {b}" for b in problems], total
 
 
-def vision_phase(counters, card):
+def vision_phase(counters, tols, card):
     """Phase 10: the vision path on VISION_TASK's 480 episodes (its
     Params() from phase 5): the views checked, bc_vision trained with one
     rollout selection eval, saved, reloaded and rolled out
-    VISION_STEPS_DYNAMIC + VISION_STEPS_KINEMATIC steps, then each of
+    VISION_STEPS_DYNAMIC + VISION_STEPS_KINEMATIC steps, K2 and K3 then
+    held on the inputs of their last calls in those rollouts, then each of
     VISION_AGENTS trained a few steps and rolled out VISION_AGENT_STEPS
     dynamic steps. Returns the launches of every kernel summed over the
     phase's rollouts."""
@@ -1934,13 +2165,20 @@ def vision_phase(counters, card):
     problems = []
     obs = vision_views(spec, params, card, problems)
     n_ctx, n_traj, n_sel = VISION_SELECT
-    row, bad, launches = vision_agent(
-        "bc_vision", spec, params.q_init, obs, counters, card,
-        (("dynamic", False, VISION_STEPS_DYNAMIC),
-         ("kinematic", True, VISION_STEPS_KINEMATIC)),
-        epochs=VISION_EPOCHS, steps_per_epoch=VISION_STEPS_PER_EPOCH,
-        eval_every=VISION_EPOCHS, select_contexts=n_ctx,
-        select_trajs=n_traj, eval_max_steps=n_sel)
+    with KernelInputs() as seen:
+        row, bad, launches = vision_agent(
+            "bc_vision", spec, params.q_init, obs, counters, card,
+            (("dynamic", False, VISION_STEPS_DYNAMIC),
+             ("kinematic", True, VISION_STEPS_KINEMATIC)),
+            epochs=VISION_EPOCHS, steps_per_epoch=VISION_STEPS_PER_EPOCH,
+            eval_every=VISION_EPOCHS, select_contexts=n_ctx,
+            select_trajs=n_traj, eval_max_steps=n_sel)
+    failed = []
+    for k in demo_kernel_records(seen.args, "vision_bc_vision", tols, False):
+        hold_kernel(k, card, failed, timed=False)
+    if failed:
+        raise SystemExit(f"vision: kernels disagree with their plain "
+                         f"versions: {failed}")
     rows, problems = [row], problems + bad
     if row["selected_epoch"] != VISION_EPOCHS:
         problems.append(f"bc_vision: selected epoch {row['selected_epoch']}"
@@ -2003,6 +2241,9 @@ def main(kernels_only=False):
         if logf.exists():
             for entry, (regs, spill) in ptxas_entries(logf.read_text()).items():
                 log(f"  ptxas {name} {entry}: {regs}; {spill}")
+                m = re.search(r"Used (\d+) registers", regs)
+                if m:
+                    PTXAS_REGS[entry] = int(m.group(1))
 
     # ---- phase 2: kernels vs plain at main-path shapes ------------------
     log(f"phase 2: {since()}")
@@ -2016,17 +2257,17 @@ def main(kernels_only=False):
     if not kernels_only:
         log(f"launch geometry: K2 at B = {B} "
             f"{dyn_kernel.arm_stage_geometry(B)}; K3 on pushing "
-            f"{st.contact.geometry}")
+            f"{st.contact.geometry(B)}")
     n_sub = params.n_substeps
     bm = lambda x: torch.movedim(x, 0, -1).contiguous()
     kernels, k1_in, k1_out, k4w_out, (ddg, fold) = main_path_kernels(params,
                                                                      dev)
-    if not kernels_only:
-        kernels.append(general_scene_kernel(st, kernels[2]["ins"],
-                                            kernels[2]["tols"]))
+    kernels.append(general_scene_kernel(st, kernels[2]["ins"],
+                                        kernels[2]["tols"]))
     failed = []
     for k in kernels:
         hold_kernel(k, card, failed, timed=k.get("timed", True))
+    k3_report(kernels[-1], kernels[-1]["tables"], card)
     # K4 against K1: the same FK + RNEA pass on the same window
     K4_VS_K1_TOL = 1e-4
     e = scaled_err(k4w_out[0].reshape(7, n_sub, B).movedim(1, 0), k1_out[4])
@@ -2052,6 +2293,15 @@ def main(kernels_only=False):
                 for f in ("ms", "device_ms", "plain_ms", "bound_ms",
                           "bound_by"):
                     by_key[k["key"]][f + "_b480"] = k[f]
+    general = []
+    if kernels_only:    # K3 on avoiding's and each general scene's substep
+        log(f"scenes: {since()}")
+        general = scene_records(tols)
+        for k in general:
+            if k3_geometry(k["tables"], k["ins"][0].shape[-1]).variant == 1:
+                hold_kernel(k, card, failed)
+            else:
+                hold_general_k3(k, card, failed)
     if failed:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failed}")
@@ -2068,12 +2318,19 @@ def main(kernels_only=False):
             "bound_by_b480")
     if kernels_only:    # the checkout under test may be another design's
         keys = tuple(k for k in keys if k != "design")
+    # a K3 row also carries its active-rows bound, a general scene's also
+    # k3_report's figures
+    general_keys = ("bound_active_ms", "bound_active_by",
+                    "active_contacts", "paths", "cap", "envs_per_block",
+                    "blocks_per_sm", "waves")
     line = lambda kk, **more: dict({k: kk[k] for k in keys},
-                                   **{k: kk[k] for k in b480 if k in kk},
+                                   **{k: kk[k] for k in b480 + general_keys
+                                      if k in kk},
                                    **more, library_ms=None)
     if kernels_only:
         print(json.dumps({"kernels": [line(kk) for kk in kernels
-                                      if kk.get("report", True)]}))
+                                      if kk.get("report", True)]
+                          + [line(kk) for kk in general]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2271,7 +2528,7 @@ def main(kernels_only=False):
 
     # ---- phase 10: vision --------------------------------------------------
     log(f"phase 10: {since()}")
-    vision_launches = vision_phase(counters, card)
+    vision_launches = vision_phase(counters, tols, card)
 
     # ---- phase 11: report -------------------------------------------------
     log(f"phase 11: {since()}")

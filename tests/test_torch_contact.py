@@ -142,47 +142,99 @@ def _rows(meta, ncon):
     return contact.select_contacts(meta, np.arange(ncon) % meta.ncon)
 
 
+def _c_functions(src, macros):
+    """The .cu's integer size functions (``__host__ __device__ inline
+    int``) as Python callables of the same arguments, C integer division
+    kept; ContactDims arguments are read by attribute (a ContactMeta).
+    imin and imax are Python's min and max."""
+    scope = dict(macros, K3_ROWC=9, imin=min, imax=max)
+    funcs = {"imin": min, "imax": max}
+    for name, args, body in re.findall(
+            r"__host__ __device__ inline int (\w+)\(([^)]*)\) \{([^{}]*)\}",
+            src):
+        if name in funcs:
+            continue
+        names = [a.split()[-1].lstrip("&") for a in args.split(",")]
+        lines = []
+        for stmt in " ".join(body.split()).split(";")[:-1]:
+            stmt = re.sub(r"^\s*(const )?int ", "", stmt).strip()
+            lines.append("    " + stmt.replace("/", "//"))
+        exec(f"def {name}({', '.join(names)}):\n" + "\n".join(lines), scope)
+        funcs[name] = scope[name]
+    return funcs
+
+
 def test_contact_kernel_geometry_mirrors_the_cu():
-    """The Python mirror of K3's launch geometry against the formulas in
-    csrc/contact_kernel.cu: the register variant's padded width, its
-    shared memory per env and per block, the general variant's shared
-    memory, and which scenes each takes; a scene too large for both
-    raises."""
+    """K3's launch geometry: the Python mirror of the sizes in
+    csrc/contact_kernel.cu (the register variant's padded width, its
+    shared memory per env and per block, the compact variant's shared
+    memory per env at a cap and its workspace slot) against the .cu's own
+    formulas; the compact variant's budget per env for a batch (one wave
+    at the fewest blocks per SM) and its cap (the largest that fits the
+    budget), which the wrapper alone picks and passes to the kernel; and
+    which scenes each variant takes; a scene too large for both raises."""
     src = _cu_source("contact_kernel")
     macro = {k: int(v) for k, v in
              re.findall(r"#define (K3_\w+) (\d+)\b", src)}
-    per_env = re.search(r"inline int reg_smem_floats\(const ContactDims& D\) "
-                        r"\{\s*const int nc = K3_REG_NC;\s*int f = (.*?);",
-                        src, re.S).group(1)
-    table = re.search(r"inline int reg_table_floats\(const ContactDims& D\) "
-                      r"\{\s*int f = (.*?);", src, re.S).group(1)
-    general = re.search(r"inline int smem_floats\(const ContactDims& D\) \{"
-                        r"\s*int n = 3 \* D.ncon;\s*return (.*?);",
-                        src, re.S).group(1)
-    c_eval = lambda expr, **v: eval(" ".join(expr.replace("D.", "").replace(
-        "K3_ROWC", "9").split()), {}, v)
-    assert (macro["K3_REG_NC"], macro["K3_REG_WARPS"], macro["K3_MAXVR"]) == (
+    f = _c_functions(src, macro)
+    assert {"reg_smem_floats", "reg_table_floats", "staged_floats",
+            "fact_floats", "compact_reg_floats", "compact_smem_floats",
+            "compact_ws_floats", "imax"} <= set(f)
+    # the launch takes the cap and sizes shared memory from it
+    assert re.search(r"d3il_contact_phase\(ContactDims D, int variant, "
+                     r"int B, int cap,", src)
+    assert re.search(r"compact_smem_floats\(D, cap\) \* K3_REG_WARPS", src)
+    assert (macro["K3_REG_NC"], macro["K3_REG_WARPS"], macro["K3_MAXVR"],
+            macro["K3_REG_MINB"]) == (
         contact_kernel.REG_COLS, contact_kernel.REG_WARPS,
-        contact_kernel.REG_MAX_VR)
+        contact_kernel.REG_MAX_VR, contact_kernel.REG_MIN_BLOCKS)
     nc, warps = macro["K3_REG_NC"], macro["K3_REG_WARPS"]
+    for B in (1, 33, 480, 1080, 8192):
+        for n_sm in (132, 114):
+            # the fewest blocks per SM (at most REG_MIN_BLOCKS) that run
+            # the batch's blocks of `warps` envs in one wave
+            per_sm = next((k for k in range(1, contact_kernel.REG_MIN_BLOCKS)
+                           if k * n_sm * warps >= B),
+                          contact_kernel.REG_MIN_BLOCKS)
+            assert contact_kernel.env_budget(B, n_sm) == (
+                (contact_kernel.SM_SMEM // per_sm
+                 - contact_kernel.BLOCK_RESERVED) // warps), (B, n_sm)
 
     meta = contact.build_meta(scenes.build_pushing_scene())
     for ncon, variant in ((18, 1), (4, 1), (19, 2), (21, 2), (30, 2),
                           (60, 2)):
         m = _rows(meta, ncon)
-        v = dict(ncon=m.ncon, nv_r=m.nv_r, nf=m.nf, nv=m.nv, n=3 * m.ncon)
-        g = contact_kernel.geometry(m)
-        assert g.variant == variant, ncon
-        if variant == 1:
-            f_env = (c_eval(per_env, nc=nc, **v) + 3) // 4 * 4
-            f_tab = (c_eval(table, **v) + 3) // 4 * 4
-            assert g.cols == nc and g.envs_per_block == warps
-            assert g.smem_per_env == 4 * f_env
-            assert g.smem_per_block == 4 * (f_tab + warps * f_env)
-        else:
+        for B in (1, 480, 1080, 8192):
+            g = contact_kernel.geometry(m, B)
+            assert g.variant == variant, ncon
+            assert g.envs_per_block == warps
+            if variant == 1:
+                assert g.cols == nc
+                assert g.smem_per_env == 4 * f["reg_smem_floats"](m)
+                assert g.smem_per_block == 4 * (
+                    f["reg_table_floats"](m) + warps * f["reg_smem_floats"](m))
+                continue
+            budget = contact_kernel.env_budget(B, contact_kernel.SM_COUNT)
+            cap = g.cap
+            assert cap == 0 or 4 * f["compact_smem_floats"](m, cap) <= budget
+            assert (cap == m.ncon
+                    or 4 * f["compact_smem_floats"](m, cap + 1) > budget)
+            for c in (1, cap, m.ncon):
+                assert (contact_kernel.compact_smem_floats(m, c)
+                        == f["compact_smem_floats"](m, c))
+                assert (contact_kernel.staged_floats(m, c)
+                        == f["staged_floats"](m, c))
+                assert (contact_kernel.fact_floats(m, c)
+                        == f["fact_floats"](m, c))
             assert g.cols == 0
-            assert g.smem_per_env == 4 * c_eval(general, **v)
-    pushing_geo = contact_kernel.ContactTables(meta, "cpu").geometry
+            assert g.smem_per_env == 4 * f["compact_smem_floats"](m, cap)
+            assert g.smem_per_block == warps * g.smem_per_env
+            assert g.ws_per_env == (0 if cap == m.ncon else
+                                    4 * f["compact_ws_floats"](m))
+    # 60 contacts of nv 21 in a batch of 8192 (three blocks per SM) pass
+    # the cap: its envs with more active run on the workspace
+    assert 0 < contact_kernel.geometry(_rows(meta, 60), 8192).cap < 60
+    pushing_geo = contact_kernel.ContactTables(meta, "cpu").geometry(8192)
     assert (pushing_geo.variant, pushing_geo.cols) == (1, 56)
     with pytest.raises(ValueError, match="shared memory"):
-        contact_kernel.ContactTables(_rows(meta, 600), "cpu")
+        contact_kernel.ContactTables(_rows(meta, 14000), "cpu")

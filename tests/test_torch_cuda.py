@@ -150,18 +150,29 @@ def _dynamic_contact_inputs(B, seed=4):
 
 
 def _hold_contact(meta, args, device):
-    """Launch K3 on ``args`` moved to ``device`` and hold it to the plain
-    version (test_contact_kernel.py:116-117: 2e-4 scaled)."""
+    """Launch K3 on ``args`` moved to ``device`` through the wrapper and
+    hold it to the plain version (test_contact_kernel.py:116-117: 2e-4
+    scaled); launch it again into outputs filled with NaN first, where
+    every element must come from the kernel: the same outputs, and f
+    exactly 0 on every contact with depth <= 0."""
     f_ref, q_ref = contact_kernel.phase_plain(meta, *args)
     tables = contact_kernel.ContactTables(meta, device)
+    B = args[0].shape[-1]
+    ins = tuple(a.to(device) for a in args)
     n0 = contact_kernel.phase_batched_bm.launches
-    f, qfrc = contact_kernel.phase_batched_bm(
-        tables, *(a.to(device) for a in args))
+    f, qfrc = contact_kernel.phase_batched_bm(tables, *ins)
     torch.cuda.synchronize()
     assert contact_kernel.phase_batched_bm.launches == n0 + 1
     assert f_ref.abs().max() > 1e-3
     assert _scaled_err(f, f_ref) <= 2e-4
     assert _scaled_err(qfrc, q_ref) <= 2e-4
+    f_nan = torch.full((meta.ncon, 3, B), float("nan"), device=device)
+    q_nan = torch.full((meta.nv, B), float("nan"), device=device)
+    contact_kernel._launch(tables, ins, f_nan, q_nan)
+    torch.cuda.synchronize()
+    assert torch.equal(f_nan, f) and torch.equal(q_nan, qfrc)
+    inactive = (args[2] <= 0).to(device)
+    assert (f.movedim(1, -1)[inactive] == 0.0).all()
     return tables
 
 
@@ -170,7 +181,7 @@ def _hold_contact(meta, args, device):
 def test_contact_kernel_matches_plain(cuda_device, B):
     meta, args = _dynamic_contact_inputs(B)
     tables = _hold_contact(meta, args, cuda_device)
-    assert (tables.geometry.variant, tables.geometry.cols) == (1, 56)
+    assert (tables.geometry(B).variant, tables.geometry(B).cols) == (1, 56)
 
 
 @pytest.mark.cuda
@@ -188,7 +199,8 @@ def test_contact_kernel_scene_sizes(cuda_device, rows, variant, cols):
     args = tuple(a[t].contiguous() if i in (0, 1, 2, 10) else a
                  for i, a in enumerate(args))  # pts, normal, depth, warm
     tables = _hold_contact(meta, args, cuda_device)
-    assert (tables.geometry.variant, tables.geometry.cols) == (variant, cols)
+    assert (tables.geometry(B).variant, tables.geometry(B).cols) == (variant,
+                                                                     cols)
 
 
 @pytest.mark.cuda
@@ -280,9 +292,9 @@ def _rod_scene_state(task, B, device, settle):
 @pytest.mark.parametrize("task", ROD_SCENES)
 def test_contact_kernel_rod_scenes(cuda_device, task, B):
     """K3's general variant on the aligning and sorting scenes (96 to 372
-    rows, 16 to 146 KB of shared memory per env), inputs from one substep
-    of a reset on the card, held to the plain version at the tolerance
-    above."""
+    rows; the compact kernel at 15 to 58 KB of shared memory per env, its
+    active contacts within the cap), inputs from one substep of a reset on
+    the card, held to the plain version at the tolerance above."""
     params, sc = _rod_scene_state(task, B, cuda_device, settle=3)
     st = params.statics
     sb = substep_bm.scene_to_bm(sc)
@@ -294,8 +306,14 @@ def test_contact_kernel_rod_scenes(cuda_device, task, B):
                                               device=cuda_device))
     args = substep_bm.contact_inputs(st, sb, arm)
     tables = _hold_contact(st.meta, args, cuda_device)
-    assert tables.geometry.variant == 2
-    assert tables.geometry.smem_per_env == contact_kernel.smem_bytes(st.meta)
+    geo = tables.geometry(B)
+    assert geo.variant == 2 and geo.envs_per_block == 4
+    assert geo.smem_per_env == contact_kernel.smem_bytes(st.meta, B,
+                                                         tables.n_sm)
+    assert geo.cap == contact_kernel.compact_cap(
+        st.meta, contact_kernel.env_budget(B, tables.n_sm))
+    # every env's active contacts within the cap: no env on the workspace
+    assert (args[2] > 0).sum(0).max().item() <= geo.cap
 
 
 @pytest.mark.cuda
@@ -370,7 +388,7 @@ def test_contact_kernel_avoiding_no_free_body(cuda_device, B):
     f_ref, _ = contact_kernel.phase_plain(meta, *args)
     assert (f_ref[2].abs().amax(dim=0) > 1e-3).all()
     tables = _hold_contact(meta, args, cuda_device)
-    assert (tables.geometry.variant, tables.geometry.smem_per_env) == \
+    assert (tables.geometry(B).variant, tables.geometry(B).smem_per_env) == \
         (1, 3632)
 
 
@@ -417,8 +435,10 @@ def test_contact_kernel_stacking_fingers(cuda_device, B):
     assert (f_ref[24:28].abs().amax(dim=(0, 1)) > 1e-3).all()
     assert (q_ref[7:9].abs() > 0).any(dim=0).all()
     tables = _hold_contact(st.meta, args, cuda_device)
-    assert tables.geometry.variant == 2
-    assert tables.geometry.smem_per_env == 68240
+    geo = tables.geometry(B)    # one block per SM at B <= 528: every contact
+    assert geo.variant == 2
+    assert geo.smem_per_env == 52768
+    assert (geo.envs_per_block, geo.cap, geo.ws_per_env) == (4, 88, 0)
 
 
 @pytest.mark.cuda
@@ -465,8 +485,9 @@ def _inserting_press_state(B):
 @pytest.mark.parametrize("B", BATCHES)
 def test_contact_kernel_inserting_box_wall(cuda_device, B):
     """K3's general variant on inserting, the largest scene (78 pairs, 270
-    contacts, 810 rows, nv 27, nf 3; 207,288 B of shared memory per env,
-    one env per block), with the rod pressing the red box into a maze wall:
+    contacts, 810 rows, nv 27, nf 3; the compact kernel at 57,584 B of
+    shared memory per env, four envs per block, a cap of 95 active
+    contacts), with the rod pressing the red box into a maze wall:
     the box-wall rows carry force in every env; held to the plain version
     at the tolerance above."""
     params, sc = _inserting_press_state(B)
@@ -482,8 +503,54 @@ def test_contact_kernel_inserting_box_wall(cuda_device, B):
     rows = pair_rows(params.scene, is_box_wall)
     assert (f_ref[rows].abs().amax(dim=(0, 1)) > 1e-3).all()
     tables = _hold_contact(st.meta, args, cuda_device)
-    assert (tables.geometry.variant, tables.geometry.envs_per_block,
-            tables.geometry.smem_per_env) == (2, 1, 207288)
+    geo = tables.geometry(B)    # one block per SM at B <= 528
+    assert (geo.variant, geo.envs_per_block, geo.smem_per_env) == (2, 4,
+                                                                   57584)
+    assert geo.cap == 95
+    assert geo.ws_per_env == contact_kernel.ws_bytes(st.meta)
+
+
+@pytest.mark.cuda
+def test_contact_kernel_compact_paths(cuda_device):
+    """K3's compact variant on one sorting_6 batch whose envs take every
+    path: no active contact, one, five (the register form), the scene's
+    own 24-28 (the factored form in shared memory), exactly the cap (70 at
+    this batch), and every contact at 1 mm depth (124, above the cap: the
+    global workspace); held to the plain version at the tolerance above, f
+    exactly 0 on the inactive contacts, the outputs filled with NaN
+    first."""
+    B = 36
+    params, sc = _rod_scene_state("sorting_6", B, cuda_device, settle=3)
+    st = params.statics
+    sb = substep_bm.scene_to_bm(sc)
+    arm = dyn_kernel.arm_stage_bm(st.arm, sb.q, sb.qd, sb.q[:7].contiguous(),
+                                  torch.zeros_like(sb.q[:7]),
+                                  torch.zeros_like(sb.q[:7]),
+                                  torch.full((B,), 0.04, device=cuda_device),
+                                  torch.zeros(B, dtype=torch.bool,
+                                              device=cuda_device))
+    args = list(substep_bm.contact_inputs(st, sb, arm))
+    cap = st.contact.geometry(B).cap
+    depth = args[2].clone()
+    for e in range(B):
+        act = torch.nonzero(depth[:, e] > 0)[:, 0]
+        kind = e % 6
+        if kind < 3:        # none, one, five of its own active contacts
+            depth[act[(0, 1, 5)[kind]:], e] = -1e-3
+        elif kind == 4:     # exactly the cap: inactive ones added
+            extra = torch.nonzero(depth[:, e] <= 0)[:, 0][:cap - len(act)]
+            depth[extra, e] = 1e-3
+        elif kind == 5:     # every contact: above the cap
+            depth[:, e] = 1e-3
+    args[2] = depth
+    n_act = (depth > 0).sum(0).cpu()
+    assert set(n_act[0::6].tolist()) == {0} and set(n_act[1::6].tolist()) == {1}
+    assert set(n_act[2::6].tolist()) == {5}
+    assert 3 * n_act[3::6].min() > contact_kernel.REG_COLS
+    assert n_act[3::6].max() <= cap
+    assert (n_act[4::6] == cap).all() and (n_act[5::6] == st.meta.ncon).all()
+    tables = _hold_contact(st.meta, tuple(args), cuda_device)
+    assert tables.geometry(B).cap == cap < st.meta.ncon
 
 
 AGENT_NAMES = ("gpt_bc", "bet", "bet_mlp", "act", "cvae", "lstm_gmm", "ibc",

@@ -2,7 +2,8 @@
 
 The eighth task: three boxes, the table and 17 maze walls (78 contact
 pairs, 270 contacts, 810 rows, nv 27), the largest scene K3's general
-variant serves (207,288 B of shared memory per env on the card). The JAX
+variant serves (on the card its compact kernel solves only each env's
+active contacts, 18 on the pressed scene). The JAX
 package runs it per env (its contact tile is 0: ``jax.vmap(step)`` maps
 the per-env step on every backend); the port runs it on its batched
 window, here through the kernels' plain versions. The JAX reset and steps
@@ -161,8 +162,10 @@ def test_step_result_matches(request, mode, i):
 
 def test_scene_takes_the_general_variant(dynamic):
     """The scene's pairs, contacts and dofs are the JAX scene's
-    (contact.build_meta); K3's general variant runs it at 207,288 B per env,
-    one env per block; the reset leaves the boxes on the table."""
+    (contact.build_meta); K3's general variant (the compact kernel) runs
+    its evaluation batch of 240 envs at 57,584 B per env, four envs per
+    block, up to 95 active contacts per env in shared memory; the reset
+    leaves the boxes on the table."""
     params, ep, _, _, _ = dynamic
     jmeta = jcontact.build_meta(jinserting.build_inserting_scene())
     meta = params.statics.meta
@@ -173,10 +176,11 @@ def test_scene_takes_the_general_variant(dynamic):
     assert [(p.geom_a.name, p.geom_b.name) for p in params.scene.pairs] == \
         [(p.geom_a.name, p.geom_b.name)
          for p in jinserting.build_inserting_scene().pairs]
-    assert contact_kernel.smem_bytes(meta) == 207288
-    geo = params.statics.contact.geometry
+    assert contact_kernel.smem_bytes(meta, 240) == 57584
+    geo = params.statics.contact.geometry(240)
     assert (geo.variant, geo.envs_per_block, geo.smem_per_block) == \
-        (2, 1, 207288)
+        (2, 4, 230336)
+    assert geo.cap == 95
     z = ep[0][1]["scene"]["free_pos"][..., 2]
     np.testing.assert_allclose(z, -0.019 + 0.025, atol=2e-3)
 

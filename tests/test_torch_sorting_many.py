@@ -1,9 +1,9 @@
 """Sorting with 4 and 6 boxes in the port against ``jax.vmap(sorting.step)``,
 under full arm dynamics.
 
-The scenes that K3's general variant first runs above 48 KB of shared
-memory per env on the card (sorting_4: 68 contacts, 204 rows, nv 33;
-sorting_6: 124 contacts, 372 rows, nv 45). The JAX package runs them per
+The scenes whose K3 launches take more than 48 KB of shared memory per
+block on the card (sorting_4: 68 contacts, 204 rows, nv 33; sorting_6:
+124 contacts, 372 rows, nv 45). The JAX package runs them per
 env under ``vmap`` on every backend (they fail its kernel's tile test); the
 port runs them on its batched window, here through the kernels' plain
 versions. Both sides build SortingParams(n, n_substeps=2) with the JAX
@@ -48,13 +48,14 @@ def test_step_result_matches(episode):
 
 def test_scene_takes_the_general_variant(episode):
     """The scene's size, the K3 variant and launch geometry the card runs
-    it with; the reset's contacts lifted every box out of the platform."""
+    its evaluation batch of 480 envs with; the reset's contacts lifted
+    every box out of the platform."""
     n, params, ep = episode
     meta = params.statics.meta
-    want = {4: (68, 33, 62872), 6: (124, 45, 149672)}[n]
-    assert (meta.ncon, meta.nv, contact_kernel.smem_bytes(meta)) == want
-    geo = params.statics.contact.geometry
-    assert (geo.variant, geo.envs_per_block) == (2, 1)
+    want = {4: (68, 33, 46032), 6: (124, 45, 57888)}[n]
+    assert (meta.ncon, meta.nv, contact_kernel.smem_bytes(meta, 480)) == want
+    geo = params.statics.contact.geometry(480)
+    assert (geo.variant, geo.envs_per_block) == (2, 4)
     assert geo.smem_per_block > 48 * 1024
     _, ps, _, _ = ep[0]
     z = ps["scene"]["free_pos"][..., 2]
