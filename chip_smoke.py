@@ -39,14 +39,18 @@ Phases (each fatal on failure):
      count it is built for on the B = 8192, the B = 480 and the set-up
      inputs;
   3. drive the env path: PushingParams() at full width, reset of 8192
-     seeded contexts, 10 hold steps then 10 steps pushing toward the red
+     seeded contexts, 8 hold steps then 10 steps pushing toward the red
      box; check the state, the resting boxes, the tcp tracking and that
      each kernel's launch count, read right after the last step, matches
      the window structure; print env-steps/s with the card's name and power
      limit; then launch K4 on the window of the next push step and hold it
-     to K1's tau_model (counted apart from the path's launches);
+     to K1's tau_model (counted apart from the path's launches); one push
+     step profiled through utils/logging.profile_trace, its Chrome trace
+     written under build/chip_smoke/trace (fatal if none appears) with the
+     seconds the export adds;
   4. drive the evaluation path: train a gmm agent at the registry's defaults
-     on data/pushing (100 epochs), save it, reload it, and roll out the
+     on data/pushing (epochs cut to EVAL_EPOCHS), save it, reload it, and
+     roll out the
      reference workload of 30 contexts x 16 trajectories (480 episodes in
      lockstep) under full arm dynamics and in kinematic mode, at a cut
      horizon; check finiteness, the frozen episodes, the +-0.01 m setpoint
@@ -158,10 +162,29 @@ Phases (each fatal on failure):
      steps, K2 = 35 x steps + the reset's 60 hold substeps under full
      dynamics and 0 kinematic, K3 = 35 x steps + 60); one ``vision`` JSON
      line;
- 11. print the ``kernels`` JSON line (with ``design``, the PR whose design
+ 11. the per-env API: PER_ENV_ENVS envs of phase 3's batch after its last
+     push step (those whose rod carries force first; fatal unless one
+     does), each run alone through envs/common._run_substeps_single on
+     the next window's setpoint (K1 and K3 at a batch of one, the arm's
+     dynamics in plain PyTorch), then the batched window of the same envs
+     (K1, K2 and K3 at B = PER_ENV_ENVS); per-env held against batched
+     (every scene field to PER_ENV_TOL max-scaled, the controller state to
+     PER_ENV_CS_TOL), launches per env-window K1 1, K2 0, K3 35, and the
+     batched window's K1 1, K2 35, K3 35; K1 and K3 timed at B = 1 on the
+     inputs of their last per-env calls, K3 held there against its plain
+     version;
+ 12. the benchmark sweep: ``run_benchmark_torch.py`` with SWEEP_ARGS
+     (avoiding, gmm, seed 0, 1 epoch, 16 episodes of 2 steps) in a
+     subprocess into build/chip_smoke/sweep, run again (it must skip the
+     recorded row: ``[done]``), then tools/make_results.py on its rows;
+     checks of the row's schema (the JAX package's keys and
+     wall_seconds), device cuda, the metrics' range and that the rendered
+     table holds the row;
+ 13. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
      ``launches_demos``, ``launches_vision`` (phase 10's rollouts; on the
-     K3 rows, sorting_2's alone), and one K3 row per scene of phases 5-7,
+     K3 rows, sorting_2's alone), ``launches_per_env`` (phase 11's per-env
+     windows, K1-K4 rows), and one K3 row per scene of phases 5-7,
      a general scene's with ``k3_report``'s figures),
      the card line, and last {"ok": true, "device": {...}}.
 """
@@ -175,7 +198,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8192
-HOLD_STEPS = PUSH_STEPS = 10
+# 8 hold steps (two fewer than push steps: they give back the time the
+# profile trace's export takes in phase 3) then 10 push steps
+HOLD_STEPS, PUSH_STEPS = 8, 10
 EVAL_CONTEXTS, EVAL_TRAJS = 30, 16      # the reference workload: 480 episodes
 EVAL_STEPS_DYNAMIC, EVAL_STEPS_KINEMATIC = 10, 4     # of the task's 400
 REPEAT_STEPS = 5                        # bc determinism rollouts (kinematic)
@@ -185,7 +210,11 @@ ROD_TASKS = ("avoiding", "aligning", "sorting_2", "sorting_4", "sorting_6")
 ROD_WORKLOADS = {"avoiding": (1, 480),  # no context: one empty context
                  "inserting": (30, 8)}
 ROD_CONTEXTS, ROD_TRAJS = 60, 8         # the others
-ROD_EPOCHS = 5                          # of the registry's 100
+# training epochs are cut to what shows each agent's training working;
+# the rollouts test the trained weights' path, not their quality, and the
+# whole run has to stay well within the chip check's limit on a slow host
+EVAL_EPOCHS = 20                        # phase 4's gmm, of the registry's 100
+ROD_EPOCHS = 2                          # of the registry's 100
 ROD_STEPS_DYNAMIC, ROD_STEPS_KINEMATIC = 2, 2   # of 400 (aligning), 700
 # hold substeps from a reset's initial scene before the B = 480 substep
 # checks, where the contacts carry force: aligning's tray has fallen the
@@ -199,9 +228,9 @@ ROD_REPEAT_TASKS = ("aligning", "sorting_2")   # bc determinism rollouts
 ROD_K2_TASKS = ("avoiding", "aligning", "sorting_2", "inserting")
 ROD_REPEAT_STEPS = 1
 STACK_CONTEXTS, STACK_TRAJS = 60, 18    # stacking's reference workload: 1,080
-STACK_EPOCHS = 5                        # of the registry's 100
+STACK_EPOCHS = 1                        # of the registry's 100
 STACK_STEPS_DYNAMIC, STACK_STEPS_KINEMATIC = 2, 2   # of 1,000
-INSERT_EPOCHS = 5                       # of the registry's 100
+INSERT_EPOCHS = 2                       # of the registry's 100
 INSERT_STEPS_DYNAMIC, INSERT_STEPS_KINEMATIC = 2, 2   # of InsertingSim's 400
 # the agents driven on the pushing evaluation path at their registry
 # defaults, beside gmm (phase 4)
@@ -252,6 +281,17 @@ GENERAL_SCENES = ("aligning", "sorting_2", "sorting_4", "sorting_6",
 # the scene whose held batch is also cut into every path of the compact
 # variant, the global workspace included (``compact_paths_kernel``)
 PATHS_SCENE = "sorting_6"
+# the per-env phase: envs of the main path's batch after its last push
+# step, each run one at a time through the per-env window and held against
+# the batched window of the same envs; every scene field max-scaled to
+# PER_ENV_TOL (K2's qd_pre hold: the per-env arm runs plain dynamics), the
+# controller state to PER_ENV_CS_TOL (K1's q_virt hold)
+PER_ENV_ENVS = 4
+PER_ENV_TOL = 1e-3
+PER_ENV_CS_TOL = 3e-5
+# the sweep phase: one benchmark row through run_benchmark_torch.py
+SWEEP_ARGS = ("--tasks", "avoiding", "--agents", "gmm", "--seeds", "0",
+              "--epochs", "1", "--n-trajs", "16", "--eval-max-steps", "2")
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
@@ -300,15 +340,17 @@ def ptxas_entries(text):
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device time queued ahead of a launch
 
 
-def cuda_ms(fn, reps, queued=False):
-    """Median of ``reps`` CUDA-event timings of one fn() (after a warm-up).
+def cuda_ms(fn, reps, queued=False, warm=True):
+    """Median of ``reps`` CUDA-event timings of one fn() (after a warm-up
+    call, unless ``warm`` is false: the caller has just run fn).
     Without ``queued`` the device is idle at the first event, so the bracket
     also holds the host's submission of fn's launches (the wrapper's checks,
     allocations and the ctypes call). With ``queued`` a sleep kernel is
     enqueued first, so the host has submitted them before the device reaches
     the first event and the events bracket device time alone."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -371,9 +413,10 @@ def count_ops(fn, *args):
     return Counter.ops
 
 
-def ik_window_ops(spec, n_sub, ins):
+def ik_window_ops(spec, n_sub, ins, plain):
     """Operations K1's function needs on these inputs (q_virt, old_vel,
-    des_pos, des_quat): the plain version's count less what it forms twice
+    des_pos, des_quat): ``plain``, the plain version's count on them
+    (count_ops), less what it forms twice
     or never reads. Each substep after the first composes fk(q_virt) and
     its dof frames again, which its predecessor's RNEA formed at the same
     q; each convergence gate repeats the first IK iteration's pose error;
@@ -410,7 +453,6 @@ def ik_window_ops(spec, n_sub, ins):
             dsc.vadd(xpos[p], dsc.qrot(
                 xquat[p], tuple(float(v) for v in chain.body_pos[b])))
 
-    plain = count_ops(lambda: dyn_kernel.ik_window_plain(spec, n_sub, *ins))
     twice = (count_ops(lambda: dsc.fk_s(chain, q))
              + count_ops(lambda: dsc.dof_frames_s(chain, xpos, xquat)))
     later_iters = int(spec.gains.num_iter) - 1
@@ -436,33 +478,58 @@ def push_action(state, hold):
     return torch.cat([state.scene.free_pos[:, 0, :2], hold[:, 2:]], dim=1)
 
 
-def profile_step(params, state, hold):
-    """One push step under torch.profiler: device busy time against the
-    step's wall time, launches by kind, and the kernels that take the most
-    device time. Prints "not measured" when the trace has no device time."""
+def profile_step(params, state, hold, trace_dir):
+    """One push step under torch.profiler, through
+    utils/logging.profile_trace: device busy time against the step's wall
+    time, launches by kind, and the kernels that take the most device time;
+    the Chrome trace written under ``trace_dir`` (fatal if none appears),
+    with the seconds its export adds. Prints "not measured" when the trace
+    has no device time."""
+    import shutil
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from d3il_tpu_torch.envs import pushing
+    from d3il_tpu_torch.utils import logging as run_logging
+    shutil.rmtree(trace_dir, ignore_errors=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_block = time.perf_counter()
+    with run_logging.profile_trace(trace_dir) as prof:
         t0 = time.perf_counter()
         pushing.step(params, state, push_action(state, hold))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+        t_stop = time.perf_counter()
+    t_export = time.perf_counter() - t_stop
+    traces = [f for f in (os.listdir(trace_dir) if os.path.isdir(trace_dir)
+                          else []) if f.endswith(".pt.trace.json")]
+    if not traces:
+        raise SystemExit(f"profile_trace wrote no trace under {trace_dir}")
+    size = os.path.getsize(os.path.join(trace_dir, traces[0]))
+    log(f"profile trace: {traces[0]} ({size / 2**20:.1f} MiB) under "
+        f"{os.path.relpath(trace_dir, ROOT)}; the profiled block "
+        f"{time.perf_counter() - t_block:.2f} s, of which the trace's "
+        f"export {t_export:.2f} s")
+    dev = device_events(prof)
+    busy_us = sum(us for _, us in dev)
     if not dev or busy_us <= 0:
         log("profile: not measured (the trace holds no device time)")
         return
-    by_name = top_device_time((e.name, e.time_range.elapsed_us())
-                              for e in dev)
+    by_name = top_device_time(dev)
     memcpy = sum(n for name, (n, _) in by_name.items()
                  if "memcpy" in name.lower())
     log(f"profile of one push step: wall {wall_us / 1e3:.1f} ms (profiler "
         f"on), device busy {busy_us / 1e3:.1f} ms ({busy_us / wall_us:.1%}), "
         f"{len(dev)} device activities of which {memcpy} memcpy")
+
+
+def device_events(prof):
+    """(name, us) of every device activity a finished torch.profiler
+    session recorded, read from its raw results: the profiler's
+    FunctionEvents, built in Python for each of up to a quarter of a
+    million events, take seconds."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def top_device_time(dev, k=8):
@@ -561,7 +628,6 @@ def profile_eval_step(spec, agent, q_init, card):
     ending in a synchronize) of the policy forward and the env step against
     the whole rollout body, then the body once under torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from d3il_tpu_torch.envs import pushing
     from d3il_tpu_torch.eval import rollout, sims
@@ -610,8 +676,8 @@ def profile_eval_step(spec, agent, q_init, card):
             body(agent.params, carry)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    dev = device_events(prof)
+    busy_us = sum(us for _, us in dev)
     if not dev or busy_us <= 0:
         log("eval step profile: not measured (the trace holds no device "
             "time)")
@@ -619,7 +685,7 @@ def profile_eval_step(spec, agent, q_init, card):
     log(f"eval step profile at B = {n}: wall {wall_us / 1e3:.1f} ms "
         f"(profiler on), device busy {busy_us / 1e3:.1f} ms "
         f"({busy_us / wall_us:.1%}), {len(dev)} device activities [{card}]")
-    top_device_time((e.name, e.time_range.elapsed_us()) for e in dev)
+    top_device_time(dev)
 
 
 def scaled_err(a, b):
@@ -652,14 +718,16 @@ def hold_kernel(k, card, failed, timed=True):
         return
     k["ms"] = cuda_ms(k["run"], k["reps"][0])
     k["device_ms"] = cuda_ms(k["run"], k["reps"][0], queued=True)
-    k["plain_ms"] = cuda_ms(k["plain"], k["reps"][1])
+    # the hold above ran the plain version: it is warm
+    k["plain_ms"] = cuda_ms(k["plain"], k["reps"][1], warm=False)
     # the operations the function needs: the plain version's, unless it
-    # forms some twice (k["ops"])
-    ops = k["ops"]() if "ops" in k else count_ops(k["plain"])
+    # forms some twice (k["ops"], given the plain version's count)
+    plain_ops = count_ops(k["plain"])
+    ops = k["ops"](plain_ops) if "ops" in k else plain_ops
     byt = nbytes(k["ins"]) + nbytes(k["out"])
     k["bound_ms"], k["bound_by"] = bound_of(ops, byt)
-    more = (f"; the plain version does {count_ops(k['plain']):.3e}"
-            if "ops" in k else "")
+    more = (f"; the plain version does {plain_ops:.3e}" if "ops" in k
+            else "")
     if "meta" in k:     # K3 (``meta``: its scene): also each env's active
         act_ops, act_byt = active_work(k["meta"], k["ins"], k["out"])
         k["bound_active_ms"], k["bound_active_by"] = bound_of(act_ops,
@@ -709,7 +777,7 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
                  run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
                  plain=lambda: dyn_kernel.ik_window_plain(st.ik, n_sub,
                                                           *k1_in),
-                 ops=lambda: ik_window_ops(st.ik, n_sub, k1_in),
+                 ops=lambda plain: ik_window_ops(st.ik, n_sub, k1_in, plain),
                  f64=lambda: dyn_kernel.ik_window_plain(
                      st.ik, n_sub, *(x.double() for x in k1_in)),
                  names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
@@ -1033,7 +1101,7 @@ def main_path_kernels(params, dev):
              replaces="d3il_tpu/engine/dyn_kernel.py:230",
              run=lambda: dyn_kernel.ik_window_bm(st.ik, n_sub, *k1_in),
              plain=lambda: dyn_kernel.ik_window_plain(st.ik, n_sub, *k1_in),
-             ops=lambda: ik_window_ops(st.ik, n_sub, k1_in),
+             ops=lambda plain: ik_window_ops(st.ik, n_sub, k1_in, plain),
              ins=k1_in, out=k1_out, reps=(5, 1),
              names=("q_virt", "old_vel", "q_des", "qd_des", "tau_model"),
              # test_dyn_kernel.py:148-156, but tau_model 2e-2 instead of
@@ -1277,11 +1345,8 @@ def profile_rod_step(spec, params, state, hold, card, top=False):
     """One dynamic env step of a task at its batch under torch.profiler,
     toward the action ``hold``: wall time, device busy share and device
     launches per substep (each of the window's substeps, K1 where the step
-    has it, and the step's glue spread over them). The trace's raw events
-    are read, not the profiler's FunctionEvents, which it builds in Python
-    for each of up to a quarter of a million events."""
+    has it, and the step's glue spread over them)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1290,9 +1355,7 @@ def profile_rod_step(spec, params, state, hold, card, top=False):
         spec.env().step(params, state, hold)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [(e.name(), e.duration_ns() / 1e3)
-           for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA]
+    dev = device_events(prof)
     busy_us = sum(us for _, us in dev)
     if not dev or busy_us <= 0:
         log(f"{spec.name} step profile: not measured (the trace holds no "
@@ -2212,6 +2275,205 @@ def demos_phase(counters, tols, card):
     return rows, total
 
 
+class LastCall:
+    """``module.name`` replaced for the block by a function that keeps the
+    arguments of its last call in ``args`` and calls the original. Used on
+    the launch functions the wrappers call (``dyn_kernel.launch_ik_window``,
+    ``contact_kernel._launch``), so that the wrappers count their launches
+    as always."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def keep(*args):
+            self.args = args
+            return self.fn(*args)
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def per_env_inputs(state, act):
+    """PER_ENV_ENVS envs of the main path's batch after its last push step,
+    those whose rod-box rows carry force first, with the next window's
+    setpoint ``act`` [B, 7] (copies)."""
+    import torch
+    rod = state.scene.warm[:, 12:14].abs().amax(dim=(1, 2)) > 0
+    idx = torch.sort((~rod).to(torch.int8), stable=True).indices
+    idx = idx[:PER_ENV_ENVS]
+    take = lambda x: x[idx].clone()
+    return (type(state.scene)(*map(take, state.scene)),
+            type(state.ctrl)(*map(take, state.ctrl)), take(act))
+
+
+def per_env_phase(params, inputs, counters, tols, card):
+    """The per-env API on the card: ``envs/common._run_substeps_single``
+    for each env of ``inputs`` (per_env_inputs) on the next window's
+    setpoint, one env at a time (K1 and K3 at a batch of one, the arm's
+    dynamics in plain PyTorch), then the batched window of the same envs
+    (K1, K2, K3 at B = PER_ENV_ENVS); per-env held against batched, the
+    launches of each env-window and of the batched window checked; K1 and
+    K3 timed at B = 1 on the inputs of their last per-env calls, K3 held
+    there against its plain version. Returns the per-env run's launches."""
+    import torch
+    from d3il_tpu_torch.engine import contact_kernel, dyn_kernel
+    from d3il_tpu_torch.envs import common
+    sc, cs, act = inputs
+    B, n_sub = sc.q.shape[0], params.n_substeps
+    loaded = sc.warm.abs().amax(-1) > 0
+    rod = loaded[:, 12:14].any(1)
+    log(f"per-env: {B} envs of the main path's batch, rows carrying force "
+        f"per env {loaded.sum(1).tolist()}, the rod's in "
+        f"{int(rod.sum())}")
+    if not rod.any():
+        raise SystemExit("per-env phase failed: no env of the slice has a "
+                         "rod contact that carries force")
+    for fn in counters.values():
+        fn.launches = 0
+    outs, secs, per_window = [], [], []
+    with LastCall(dyn_kernel, "launch_ik_window") as k1, \
+            LastCall(contact_kernel, "_launch") as k3:
+        for e in range(B):
+            n0 = {k: fn.launches for k, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(common._run_substeps_single(
+                params, type(sc)(*(x[e] for x in sc)),
+                type(cs)(*(x[e] for x in cs)), act[e, :3], act[e, 3:], 0.04,
+                False))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            per_window.append({k: fn.launches - n0[k]
+                               for k, fn in counters.items()})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n0 = dict(launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc_b, cs_b = common.run_substeps(params, sc, cs, act[:, :3].contiguous(),
+                                     act[:, 3:].contiguous())
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    batched = {k: fn.launches - n0[k] for k, fn in counters.items()}
+    want = {"K1": 1, "K2": 0, "K3": n_sub, "K4": 0}
+    want_b = {"K1": 1, "K2": n_sub, "K3": n_sub, "K4": 0}
+    errs = {name: max(scaled_err(o[0][i], sc_b[i][e])
+                      for e, o in enumerate(outs))
+            for i, name in enumerate(sc._fields)}
+    cs_err = max(scaled_err(o[1][i], cs_b[i][e]) for e, o in enumerate(outs)
+                 for i in range(2))
+    log(f"per-env: {B} env-windows of {n_sub} substeps, "
+        + ", ".join(f"{t:.2f}" for t in secs) + f" s each; the batched "
+        f"window of the {B} {t_batched:.3f} s [{card}]")
+    log(f"per-env launches per env-window {per_window} expected {want}; "
+        f"batched window {batched} expected {want_b}")
+    log("per-env vs batched, max scaled err over the envs: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {PER_ENV_TOL:g}); controller {cs_err:.3e} "
+        f"(tol {PER_ENV_CS_TOL:g})")
+    problems = []
+    if any(w != want for w in per_window):
+        problems.append(f"per env-window launches {per_window} != {want}")
+    if batched != want_b:
+        problems.append(f"batched window launches {batched} != {want_b}")
+    bad = {n: e for n, e in errs.items() if not e <= PER_ENV_TOL}
+    if bad:
+        problems.append(f"per-env state off the batched window: {bad}")
+    if not cs_err <= PER_ENV_CS_TOL:
+        problems.append(f"per-env controller state off by {cs_err:.3e}")
+    if not all(torch.isfinite(x).all().item() for o in outs for x in o[0]):
+        problems.append("non-finite per-env state")
+    # K1 and K3 at B = 1 on their last per-env inputs (launches not counted)
+    spec, steps, ins1, _ = k1.args
+    run1 = lambda: dyn_kernel.ik_window_bm(spec, steps, *ins1)
+    log(f"K1 at B = 1 (n_sub {n_sub}, per-env window): kernel "
+        f"{cuda_ms(run1, 10):.4f} ms (device "
+        f"{cuda_ms(run1, 10, queued=True):.4f} ms) [{card}]")
+    a3 = (k3.args[0], *k3.args[1])
+    rec = dict(name="contact_phase_b1_per_env", key="K3",
+               out=contact_kernel.phase_batched_bm(*a3),
+               plain=lambda: contact_kernel.phase_plain(a3[0].meta, *a3[1:]),
+               run=lambda: contact_kernel.phase_batched_bm(*a3),
+               names=("f", "qfrc"), tols=tols["K3"], reps=(20, 3),
+               ins=a3[1:], meta=a3[0].meta)
+    failed = []
+    hold_kernel(rec, card, failed)
+    if failed:
+        problems.append(f"K3 at B = 1 disagrees with its plain version: "
+                        f"{failed}")
+    if problems:
+        raise SystemExit("per-env phase failed: " + "; ".join(problems))
+    return launches
+
+
+def sweep_phase(card):
+    """The benchmark sweep through its entry point, as a user runs it: one
+    row (SWEEP_ARGS) in a subprocess of run_benchmark_torch.py (its row in
+    a subprocess of run_train_torch.py), then the same command again, which
+    must skip the recorded row, then tools/make_results.py on the rows;
+    checks of the row's schema, device, metrics' range and wall seconds."""
+    import shutil
+    out = os.path.join(ROOT, "build", "chip_smoke", "sweep")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, os.path.join(ROOT, "run_benchmark_torch.py"),
+           *SWEEP_ARGS, "--out", out]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=900)
+        runs.append((r, time.perf_counter() - t0))
+        if r.returncode != 0:
+            raise SystemExit(f"sweep failed (rc {r.returncode}):\n"
+                             + (r.stdout + r.stderr)[-2000:])
+    path = os.path.join(out, "results.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    md = os.path.join(out, "RESULTS.md")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                     "make_results.py"),
+                        "--in", path, "--out", md], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    t_md = time.perf_counter() - t0
+    text = open(md).read() if os.path.exists(md) else ""
+    row = rows[0] if rows else {}
+    log(f"sweep: {' '.join(SWEEP_ARGS)}: first run {runs[0][1]:.1f} s, "
+        f"rerun {runs[1][1]:.1f} s, make_results {t_md:.1f} s [{card}]")
+    log(f"sweep row: {json.dumps(row)}")
+    keys = {"task", "agent", "seed", "eval_mode", "data", "device", "date",
+            "train_seconds", "final_train_loss", "success_rate", "entropy",
+            "score", "eval_seconds", "wall_seconds"}
+    problems = []
+    if len(rows) != 1 or "error" in row:
+        problems.append(f"{len(rows)} rows, error {row.get('error')}")
+    elif not keys <= set(row):
+        problems.append(f"row lacks {sorted(keys - set(row))}")
+    else:
+        if (row["task"], row["agent"], row["seed"], row["device"],
+                row["eval_mode"]) != ("avoiding", "gmm", 0, "cuda",
+                                      "dynamic"):
+            problems.append("row is not avoiding / gmm / seed 0 / cuda / "
+                            "dynamic")
+        if not all(0.0 <= row[k] <= 1.0 for k in ("success_rate", "entropy",
+                                                  "score")):
+            problems.append("metrics out of [0, 1]")
+        if not 0 < row["wall_seconds"] <= runs[0][1]:
+            problems.append(f"wall_seconds {row['wall_seconds']}")
+    if "[done] avoiding gmm seed 0" not in runs[1][0].stdout:
+        problems.append("the rerun did not skip the recorded row")
+    if r.returncode != 0 or "## avoiding" not in text or not any(
+            ln.startswith("| gmm") for ln in text.splitlines()):
+        problems.append(f"make_results failed (rc {r.returncode}): "
+                        + r.stderr[-500:])
+    if problems:
+        raise SystemExit("sweep phase failed: " + "; ".join(problems))
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -2434,7 +2696,9 @@ def main(kernels_only=False):
         log(f"main path: the kernels' timed {f} x launches = {kernel_s:.3f} "
             f"s of {t_hold + t_push:.3f} s wall "
             f"({kernel_s / (t_hold + t_push):.1%}) [{card}]")
-    profile_step(params, state, hold)
+    profile_step(params, state, hold,
+                 os.path.join(ROOT, "build", "chip_smoke", "trace"))
+    per_env_in = per_env_inputs(state, act)
 
     # ---- phase 4: the evaluation path -----------------------------------
     log(f"phase 4: {since()}")
@@ -2443,7 +2707,7 @@ def main(kernels_only=False):
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "pushing_gmm.pt")
     targs = run_train_torch.make_args(
         task="pushing", agent="gmm", device="cuda", skip_eval=True, ckpt=ckpt,
-        data=os.path.join(ROOT, "data"))
+        epochs=EVAL_EPOCHS, data=os.path.join(ROOT, "data"))
     row = run_train_torch.run_one(targs)
     log(f"eval path: trained gmm (hidden {targs.hidden}, {targs.layers} "
         f"layers, window {targs.window}) for {targs.epochs} epochs in "
@@ -2530,8 +2794,21 @@ def main(kernels_only=False):
     log(f"phase 10: {since()}")
     vision_launches = vision_phase(counters, tols, card)
 
-    # ---- phase 11: report -------------------------------------------------
+    # ---- phase 11: the per-env window -------------------------------------
     log(f"phase 11: {since()}")
+    t0 = time.perf_counter()
+    per_env_launches = per_env_phase(params, per_env_in, counters, tols,
+                                     card)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 12: the benchmark sweep --------------------------------------
+    log(f"phase 12: {since()}")
+    t0 = time.perf_counter()
+    sweep_phase(card)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 13: report -------------------------------------------------
+    log(f"phase 13: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row
@@ -2544,7 +2821,8 @@ def main(kernels_only=False):
              launches_eval_dynamic=eval_launches["dynamic"][kk["key"]],
              launches_eval_kinematic=eval_launches["kinematic"][kk["key"]],
              launches_demos=demo_launches[kk["key"]],
-             launches_vision=vision_launches[kk["key"]])
+             launches_vision=vision_launches[kk["key"]],
+             launches_per_env=per_env_launches[kk["key"]])
         for kk in kernels if kk.get("report", True)] + [
         line(kk, launches=kk["launches_eval_dynamic"],
              launches_eval_dynamic=kk["launches_eval_dynamic"],
@@ -2553,6 +2831,7 @@ def main(kernels_only=False):
              launches_vision=vision_launches["K3"]
              if kk["name"].endswith("_" + VISION_TASK) else 0)
         for kk in rod_rows]}))
+    log(f"report printed: {since()}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

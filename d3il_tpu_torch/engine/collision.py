@@ -1,4 +1,4 @@
-"""Batched narrow-phase colliders (the ones the ported scenes use).
+"""Batched narrow-phase colliders.
 
 Counterpart of ``d3il_tpu/engine/collision.py``, written over a leading env
 batch instead of under ``vmap``: poses are ``[B, 3]`` / ``[B, 4]``, a geom's
@@ -48,6 +48,15 @@ def box_plane(box_pos, box_quat, half_size, plane_pos, plane_normal):
         pos=torch.gather(corners, 1, idx[..., None].expand(-1, -1, 3)),
         normal=plane_normal[:, None].expand(-1, 4, -1),
         depth=torch.gather(depth, 1, idx))
+
+
+def sphere_plane(pos, radius, plane_pos, plane_normal):
+    """Sphere (A) vs plane: one contact; poses [..., 3]."""
+    d = _dot(pos - plane_pos, plane_normal)
+    depth = radius - d
+    cpos = pos - plane_normal * (d - 0.5 * depth)[..., None]
+    return Contacts(pos=cpos[..., None, :], normal=plane_normal[..., None, :],
+                    depth=depth[..., None])
 
 
 def capsule_plane(pos, quat, radius, half_len, plane_pos, plane_normal):

@@ -6,7 +6,10 @@ Counterpart of ``d3il_tpu/engine/contact.py``. ``ContactMeta`` and
 are the plain PyTorch version of the contact kernel
 (``engine/contact_kernel.py``): matrix-free preconditioned APGD, with the
 Delassus matvec A y = J M^-1 J' y + R y evaluated as two [n, nv]
-contractions.
+contractions. ``phase_single`` and ``make_contact_phase`` are the per-env
+phase of ``engine/step.make_step_fn``: one env as a batch of one through
+the kernel's wrapper, which launches K3 on CUDA tensors and runs the plain
+version on CPU tensors.
 """
 from __future__ import annotations
 
@@ -235,3 +238,38 @@ def phase_core(meta: ContactMeta, Jf, depth, Minv_arm, v_all, a_smooth, warm):
     f_flat = fh / s_half * mask
     qfrc = (Jf.transpose(-1, -2) @ f_flat[..., None])[..., 0]
     return f_flat.reshape(B, ncon, 3), qfrc
+
+
+def phase_single(tables, pts, normal, depth, axes, anchors, Minv_arm, v_all,
+                 a_smooth, free_pos, free_quat, warm):
+    """The contact phase of one env: pts / normal [ncon, 3], depth [ncon],
+    axes / anchors [nv_r, 3], Minv_arm [nv_r, nv_r], v_all / a_smooth [nv],
+    free_pos [nf, 3], free_quat [nf, 4], warm [ncon, 3]; ``tables`` the
+    scene's ``contact_kernel.ContactTables`` on the inputs' device. Runs as
+    a batch of one through ``contact_kernel.phase_batched_bm``. Returns
+    (f [ncon, 3], qfrc [nv])."""
+    from d3il_tpu_torch.engine import contact_kernel
+    col = lambda x: x[..., None].contiguous()
+    f, qfrc = contact_kernel.phase_batched_bm(
+        tables, *(col(x) for x in (pts, normal, depth, axes, anchors,
+                                   Minv_arm, v_all, a_smooth, free_pos,
+                                   free_quat, warm)))
+    return f[..., 0], qfrc[..., 0]
+
+
+def make_contact_phase(scene):
+    """The per-env contact phase of ``scene``: fn(pts, normal, depth, axes,
+    anchors, Minv_arm, v_all, a_smooth, free_pos, free_quat, warm) ->
+    (f [ncon, 3], qfrc [nv]) (``phase_single``), with the scene's tables
+    built once per device."""
+    from d3il_tpu_torch.engine import contact_kernel
+    meta = build_meta(scene)
+    tables = {}
+
+    def phase(pts, *args):
+        dev = pts.device
+        if dev not in tables:
+            tables[dev] = contact_kernel.ContactTables(meta, dev)
+        return phase_single(tables[dev], pts, *args)
+
+    return phase

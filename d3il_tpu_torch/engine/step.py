@@ -1,9 +1,12 @@
-"""Scene state and the batched narrow phase.
+"""Scene state, the batched narrow phase and the per-env physics step.
 
-Counterpart of the state and collision parts of ``d3il_tpu/engine/step.py``
-and of ``substep_bm.narrow_phase_bm``. The JAX package runs its colliders
-per env under ``vmap``; here they run over the env batch directly. The
-physics step itself is the batched window in ``engine/substep_bm.py``.
+Counterpart of ``d3il_tpu/engine/step.py`` and of
+``substep_bm.narrow_phase_bm``. The JAX package runs its colliders per env
+under ``vmap``; here they run over the env batch directly, and the batched
+physics step is the window in ``engine/substep_bm.py``. ``make_step_fn``
+is the per-env API (one env's state, no batch axis): smooth dynamics,
+the narrow phase and the contact phase (K3 at a batch of one) and
+semi-implicit Euler, built from the batched blocks at B = 1.
 """
 from __future__ import annotations
 
@@ -13,12 +16,17 @@ import numpy as np
 import torch
 
 from d3il_tpu_torch.engine import collision
-from d3il_tpu_torch.engine.model import BOX, CAPSULE, PLANE, SceneModel
+from d3il_tpu_torch.engine import contact as contact_mod
+from d3il_tpu_torch.engine.model import (BOX, CAPSULE, PLANE, SPHERE,
+                                         SceneModel)
+from d3il_tpu_torch.ops import linalg as linalg_ops
 from d3il_tpu_torch.ops import quat as quat_ops
+from d3il_tpu_torch.robot import chain as chain_mod
 
 
 class SceneState(NamedTuple):
-    """Batched scene state; every field has the env batch first."""
+    """Scene state; every field has the env batch first (the per-env API,
+    ``make_step_fn``, takes one env's, without it)."""
     q: torch.Tensor            # [B, 9] robot joint positions
     qd: torch.Tensor           # [B, 9]
     free_pos: torch.Tensor     # [B, nf, 3]
@@ -74,7 +82,15 @@ def _pair_contacts(pair, pa, qa, pb, qb):
     if (ta, tb) == (CAPSULE, CAPSULE):
         return collision.capsule_capsule(pa, qa, sa[0], sa[1], pb, qb, sb[0],
                                          sb[1])
-    raise NotImplementedError(f"no batched collider for pair {(ta, tb)}")
+    if (ta, tb) == (SPHERE, PLANE):
+        return collision.sphere_plane(pa, sa[0], pb, plane_normal(qb))
+    if (ta, tb) == (SPHERE, BOX):
+        return collision.sphere_box(pa[:, None], sa[0], pb[:, None],
+                                    qb[:, None], sb[:3])
+    if (ta, tb) == (SPHERE, SPHERE):       # two zero-length capsules
+        return collision.capsule_capsule(pa, qa, sa[0], 0.0, pb, qb, sb[0],
+                                         0.0)
+    raise ValueError(f"unhandled pair {(ta, tb)}")
 
 
 def narrow_phase(scene: SceneModel, xpos, xquat, free_pos, free_quat):
@@ -91,3 +107,106 @@ def narrow_phase(scene: SceneModel, xpos, xquat, free_pos, free_quat):
                                   free_quat)
         out.append(_pair_contacts(pair, pa, qa, pb, qb))
     return collision._stack(*out)
+
+
+def _contact_rows(scene: SceneModel, state: SceneState, fk_cache):
+    """One env's colliders: (Contacts with pos / normal [ncon, 3] and depth
+    [ncon], the ContactPair of each row)."""
+    xpos, xquat = fk_cache
+    c = narrow_phase(scene, xpos[None], xquat[None], state.free_pos[None],
+                     state.free_quat[None])
+    metas = [pair for pair in scene.pairs for _ in range(pair.max_points)]
+    return collision.Contacts(*(x[0] for x in c)), metas
+
+
+def make_step_fn(scene: SceneModel, kinematic_robot: bool = False):
+    """The per-env step function step(state, ctrl, dyn=None) -> state.
+
+    ``ctrl`` is the robot's torques [nv_r]; with ``kinematic_robot`` the arm
+    follows an externally set joint trajectory instead (ctrl = [q, qd],
+    [2 nv_r]) and is an infinite-mass collider for the free bodies.
+    ``dyn``: optional (fk_cache, M_arm, bias_arm) of
+    ``chain.dynamics(robot, q, qd, gravity)`` at the pre-step state, shared
+    with the caller's gravity compensation."""
+    robot = scene.robot
+    nv_r = robot.nv
+    nf = scene.n_free
+    h = scene.dt
+    contact_phase = (contact_mod.make_contact_phase(scene) if scene.pairs
+                     else None)
+
+    def step(state: SceneState, ctrl, dyn=None) -> SceneState:
+        f64 = lambda a: state.q.new_tensor(np.asarray(a, np.float64))
+        g = f64(scene.gravity)
+        lo, hi = f64(robot.joint_range[:, 0]), f64(robot.joint_range[:, 1])
+
+        if kinematic_robot:
+            state = state._replace(q=ctrl[:nv_r], qd=ctrl[nv_r:2 * nv_r])
+            fk_cache = chain_mod.fk(robot, state.q)
+            Minv_arm = state.q.new_zeros((nv_r, nv_r))
+            a_smooth_arm = state.q.new_zeros(nv_r)
+        else:
+            if dyn is None:
+                dyn = chain_mod.dynamics(robot, state.q, state.qd,
+                                         scene.gravity)
+            fk_cache, M_arm, bias_arm = dyn
+            fr = f64(scene.forcerange)
+            tau = torch.minimum(torch.maximum(ctrl, fr[:, 0]), fr[:, 1])
+            f_arm = tau - bias_arm
+            Minv_arm = linalg_ops.inv_spd(
+                M_arm + h * torch.diag(f64(robot.joint_damping)))
+
+        def integrate_arm(qfrc_arm):
+            # (M + hD) v' = M v + h (tau - bias + qfrc_con); then the joint
+            # range hard stop
+            rhs = M_arm @ state.qd + h * (f_arm + qfrc_arm)
+            qd_new = Minv_arm @ rhs
+            q_new = state.q + h * qd_new
+            out = (q_new < lo) | (q_new > hi)
+            return (torch.minimum(torch.maximum(q_new, lo), hi),
+                    torch.where(out, 0.0, qd_new))
+
+        m_f = f64(scene.free_mass)
+        I_f = f64(scene.free_inertia).reshape(nf, 3)
+        f_free_ang = -torch.linalg.cross(state.free_angvel,
+                                         I_f * state.free_angvel, dim=-1)
+
+        def free_update(fcon_lin, fcon_ang):
+            linvel = state.free_linvel + h * (g + fcon_lin)
+            angvel = state.free_angvel + h * ((f_free_ang + fcon_ang) / I_f)
+            return dict(free_pos=state.free_pos + h * linvel,
+                        free_quat=quat_ops.integrate(state.free_quat, angvel,
+                                                     h),
+                        free_linvel=linvel, free_angvel=angvel)
+
+        if not scene.pairs:
+            free = free_update(0.0, 0.0) if nf else {}
+            if kinematic_robot:
+                return state._replace(**free)
+            q_new, qd_new = integrate_arm(0.0)
+            return state._replace(q=q_new, qd=qd_new, **free)
+
+        contacts, _ = _contact_rows(scene, state, fk_cache)
+        v_all = torch.cat([state.qd, torch.cat(
+            [state.free_linvel, state.free_angvel], dim=1).reshape(-1)])
+        if not kinematic_robot:
+            a_smooth_arm = Minv_arm @ f_arm         # (M + hD)^-1 f
+        a_free = torch.cat([g.expand(nf, 3), f_free_ang / I_f],
+                           dim=1).reshape(-1)
+        axes, anchors = chain_mod._dof_frames(robot, *fk_cache)
+        f, qfrc = contact_phase(
+            contacts.pos, contacts.normal, contacts.depth, axes, anchors,
+            Minv_arm, v_all, torch.cat([a_smooth_arm, a_free]),
+            state.free_pos, state.free_quat, state.warm)
+
+        if kinematic_robot:
+            q_new, qd_new = state.q, state.qd
+        else:
+            q_new, qd_new = integrate_arm(qfrc[:nv_r])
+        free = {}
+        if nf:
+            fcon = qfrc[nv_r:].reshape(nf, 6)
+            free = free_update(fcon[:, :3] / m_f[:, None], fcon[:, 3:])
+        return state._replace(q=q_new, qd=qd_new, warm=f, **free)
+
+    return step

@@ -10,6 +10,12 @@ One env step runs one window of ``n_substeps`` 1 ms ticks through
 ``engine/substep_bm.py`` (cartesian DLS-IK -> joint PD + URDF-model
 feedforward -> finger force law -> gravity compensation from the sim-model
 bias -> actuator clamp -> contacts -> integration).
+
+The per-env API (``physics_substep``, ``ik_trajectory``,
+``control_substep``, ``hold_substep``, ``_run_substeps_single``) steps one
+env's state (no batch axis) through ``params._engine_step``, the scene's
+``engine/step.make_step_fn``; no entry point calls it: it serves tools and
+tests, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from d3il_tpu_torch.control import gains, offline_ik
+from d3il_tpu_torch.control import (cartesian, gains, gripper, joint_pd,
+                                    offline_ik)
 from d3il_tpu_torch.engine import dyn_kernel, substep_bm
 from d3il_tpu_torch.engine import step as estep
 from d3il_tpu_torch.engine.model import SceneModel
@@ -82,6 +89,17 @@ class RodTaskParams:
             q_init = self._null_converge(self.start_ik(), self.init_ee_pos,
                                          self.init_ee_quat)
         self.q_init = np.asarray(q_init, np.float64)
+        self._engine_steps = {}
+
+    @property
+    def _engine_step(self):
+        """The per-env physics step of the scene in the params' current
+        mode (``engine/step.make_step_fn``, built once per mode)."""
+        fn = self._engine_steps.get(self.kinematic)
+        if fn is None:
+            fn = self._engine_steps[self.kinematic] = estep.make_step_fn(
+                self.scene, kinematic_robot=self.kinematic)
+        return fn
 
     def start_ik(self):
         """Offline IK of the initial ee pose from the default qpos."""
@@ -100,16 +118,117 @@ class RodTaskParams:
     def _null_converge(self, q0, ee_pos, ee_quat,
                        iters: int = NULL_CONVERGE_ITERS):
         """Iterate the cartesian controller's virtual-posture update (no
-        physics) until the null-space drive is stationary: one IK window of
-        ``iters`` updates for a single env."""
-        qv, _, _, _, _ = dyn_kernel.ik_window_bm(
-            self.statics.ik, iters,
-            *self.null_converge_window(q0, ee_pos, ee_quat))
-        return qv[:, 0].double().cpu().numpy()
+        physics) until the null-space drive is stationary: on the card one
+        IK window of ``iters`` updates for a single env (one launch of K1);
+        on the CPU ``iters`` calls of ``cartesian.step``, the JAX package's
+        form, which stop at the first update that returns the state it was
+        given: the update is a function of that state alone, so every later
+        one returns it too and the result is the same bit for bit."""
+        qv, ov, des_pos, des_quat = self.null_converge_window(q0, ee_pos,
+                                                              ee_quat)
+        if self.device.type != "cpu":
+            qv, _, _, _, _ = dyn_kernel.ik_window_bm(
+                self.statics.ik, iters, qv, ov, des_pos, des_quat)
+            return qv[:, 0].double().cpu().numpy()
+        st = cartesian.init_state(qv[:, 0])
+        for _ in range(iters):
+            new, _, _, _ = cartesian.step(self.ctrl_chain, self.cart_gains,
+                                          st, des_pos[:, 0], des_quat[:, 0],
+                                          self.dt)
+            if all(torch.equal(a, b) for a, b in zip(new, st)):
+                break
+            st = new
+        return st.q_virt.double().numpy()
 
     def tcp_pose(self, sc: estep.SceneState):
         xpos, xquat = chain_mod.fk(self.scene.robot, sc.q)
         return xpos[:, self.tcp_body], xquat[:, self.tcp_body]
+
+
+def _scalar(x, like, dtype=None):
+    return torch.as_tensor(x, dtype=dtype or like.dtype, device=like.device)
+
+
+def physics_substep(params: RodTaskParams, sc, q_des, qd_des, tau_model,
+                    set_width=0.04, grasp_flag=False):
+    """One env's 1 ms physics tick given the controller's joint setpoint
+    q_des / qd_des [7] and the model feedforward tau_model [7]. One
+    dynamics evaluation is shared between gravity compensation and the
+    engine. In kinematic mode the arm is beamed to q_des and the fingers
+    rate-track set_width (qd_des and tau_model unused)."""
+    if params.kinematic:
+        sw = _scalar(set_width, sc.q).expand(2)
+        w = torch.minimum(torch.maximum(sw, sc.q[7:] - 0.2 * params.dt),
+                          sc.q[7:] + 0.2 * params.dt)
+        q_new = torch.cat([q_des, w])
+        qd_new = (q_new - sc.q) / params.dt
+        return params._engine_step(sc, torch.cat([q_new, qd_new]))
+    dyn = chain_mod.dynamics(params.scene.robot, sc.q, sc.qd,
+                             params.scene.gravity)
+    tau = joint_pd.pd_accel(params.pd_gains, q_des, qd_des, sc.q[:7],
+                            sc.qd[:7]) + tau_model
+    fing = gripper.finger_forces(sc.q[7:], sc.qd[7:],
+                                 _scalar(set_width, sc.q),
+                                 _scalar(grasp_flag, sc.q, torch.bool))
+    ctrl = torch.cat([tau + dyn[2][:7], fing])
+    return params._engine_step(sc, ctrl, dyn)
+
+
+def ik_trajectory(params: RodTaskParams, cs, des_pos, des_quat):
+    """The cartesian DLS-IK controller over a whole substep window for one
+    env: (cs, (q_des, qd_des, qdd_des)), each [n_substeps, 7]."""
+    out = []
+    for _ in range(params.n_substeps):
+        cs, q_des, qd_des, qdd_des = cartesian.step(
+            params.ctrl_chain, params.cart_gains, cs, des_pos, des_quat,
+            params.dt)
+        out.append((q_des, qd_des, qdd_des))
+    return cs, tuple(torch.stack(x) for x in zip(*out))
+
+
+def control_substep(params: RodTaskParams, carry, _, set_width=0.04,
+                    grasp_flag=False):
+    """One env's 1 ms tick: controller update + physics (the interleaved
+    form). carry = (sc, cs, des_pos, des_quat); returns (carry, None)."""
+    sc, cs, des_pos, des_quat = carry
+    cs, q_des, qd_des, qdd_des = cartesian.step(
+        params.ctrl_chain, params.cart_gains, cs, des_pos, des_quat,
+        params.dt)
+    tau_model = joint_pd.model_feedforward(params.ctrl_chain, q_des, qd_des,
+                                           qdd_des)
+    sc = physics_substep(params, sc, q_des, qd_des, tau_model, set_width,
+                         grasp_flag)
+    return (sc, cs, des_pos, des_quat), None
+
+
+def hold_substep(params: RodTaskParams, carry, _):
+    """Joint-PD hold of one env at the fixed setpoint q_hold [7]
+    (qd_des = tau_model = 0); in kinematic mode the arm is beamed to it
+    with the fingers where they are. carry = (sc, q_hold)."""
+    sc, q_hold = carry
+    if params.kinematic:
+        q_new = torch.cat([q_hold, sc.q[7:]])
+        sc = params._engine_step(sc, torch.cat([q_new,
+                                                torch.zeros_like(q_new)]))
+        return (sc, q_hold), None
+    zero = torch.zeros_like(q_hold)
+    return (physics_substep(params, sc, q_hold, zero, zero), q_hold), None
+
+
+def _run_substeps_single(params: RodTaskParams, sc, cs, des_pos, des_quat,
+                         set_width, grasp_flag):
+    """One env's substep window: the controller trajectory q_des / qd_des
+    and its model feedforward from K1 (``dyn_kernel.ik_window_bm`` at a
+    batch of one), then n_substeps of ``physics_substep``. Returns
+    (sc', cs')."""
+    col = lambda x: x[:, None].contiguous()
+    qv, ov, q_w, qd_w, tau_w = dyn_kernel.ik_window_bm(
+        params.statics.ik, params.n_substeps, col(cs.q_virt),
+        col(cs.old_des_vel), col(des_pos), col(des_quat))
+    for i in range(params.n_substeps):
+        sc = physics_substep(params, sc, q_w[i, :, 0], qd_w[i, :, 0],
+                             tau_w[i, :, 0], set_width, grasp_flag)
+    return sc, type(cs)(q_virt=qv[:, 0], old_des_vel=ov[:, 0])
 
 
 def run_substeps(params: RodTaskParams, sc, cs, des_pos, des_quat,

@@ -2,10 +2,12 @@
 
 Counterpart of ``d3il_tpu/robot/chain.py``. ``Chain`` and ``ChainBuilder``
 are host NumPy (a copy of the JAX package's builder, so both packages build
-bit-identical constant arrays); ``fk``, ``_dof_frames`` and
-``point_jacobian`` run on torch tensors with any leading batch shape. The
-dynamics of the window (RNEA, CRBA) live in ``engine/dyn_scalar.py`` and
-its CUDA kernels.
+bit-identical constant arrays); ``fk``, ``_dof_frames``,
+``point_jacobian`` and ``dynamics`` run on torch tensors with any leading
+batch shape. ``dynamics`` is the JAX package's form (the body Jacobians
+and their time derivatives), which the per-env step uses; the batched
+window's dynamics (RNEA, CRBA) live in ``engine/dyn_scalar.py`` and its
+CUDA kernels.
 """
 from __future__ import annotations
 
@@ -201,3 +203,54 @@ def point_jacobian(chain: Chain, q: torch.Tensor, body: int, offset=None,
     jp = mask * (is_hinge * jp_h + (1 - is_hinge) * axes)
     jr = mask * is_hinge * axes
     return torch.cat([jp.transpose(-1, -2), jr.transpose(-1, -2)], dim=-2)
+
+
+def _body_jacobians(chain: Chain, q: torch.Tensor, qd: torch.Tensor):
+    """COM Jacobians of all bodies, Jp and Jr [..., nb, nv, 3] (one row of
+    each per dof), their time derivatives along qd, and the FK."""
+    xpos, xquat = fk(chain, q)
+    coms = xpos + quat_ops.rotate(xquat, _const(chain.com, q))
+    axes, anchors = _dof_frames(chain, xpos, xquat)                # [..,nv,3]
+    anc = _const(chain.ancestor_mask, q)
+    mask = anc[..., None]                                          # [nb,nv,1]
+    is_hinge = _const(chain.joint_type[chain.dof_body] == HINGE, q)[:, None]
+    ax = axes[..., None, :, :]
+    arm = coms[..., :, None, :] - anchors[..., None, :, :]         # [..,nb,nv,3]
+    jp = mask * (is_hinge * quat_ops.cross(ax, arm) + (1 - is_hinge) * ax)
+    jr = mask * is_hinge * ax
+    # d/dt: an axis turns with its body, a_j' = w_body(j) x a_j; an anchor
+    # moves with its body's point velocity; a COM with Jp qd
+    along = lambda J: torch.einsum("...bkc,...k->...bc", J, qd)
+    w, vc = along(jr), along(jp)                                   # [..,nb,3]
+    a_dot = quat_ops.cross(w[..., chain.dof_body, :], axes)       # [..,nv,3]
+    dd = anchors[..., :, None, :] - anchors[..., None, :, :]       # [..,nv,nv,3]
+    j_anchor = anc[chain.dof_body][..., None] * (
+        is_hinge * quat_ops.cross(ax, dd) + (1 - is_hinge) * ax)
+    p_dot = along(j_anchor)                                        # [..,nv,3]
+    ad = a_dot[..., None, :, :]
+    djp = mask * (is_hinge * (quat_ops.cross(ad, arm) + quat_ops.cross(
+        ax, vc[..., :, None, :] - p_dot[..., None, :, :]))
+        + (1 - is_hinge) * ad)
+    djr = mask * is_hinge * ad
+    return (jp, jr), (djp, djr), (w, xpos, xquat)
+
+
+def dynamics(chain: Chain, q: torch.Tensor, qd: torch.Tensor,
+             gravity=(0.0, 0.0, -9.81)):
+    """FK, mass matrix and bias forces from the body Jacobians and their
+    time derivatives along qd: ((xpos [..., nb, 3], xquat [..., nb, 4]),
+    M [..., nv, nv], bias [..., nv]) with bias = C(q, qd) qd + g(q),
+    MuJoCo's qfrc_bias."""
+    (jp, jr), (djp, djr), (w, xpos, xquat) = _body_jacobians(chain, q, qd)
+    g = _const(gravity, q)
+    m = _const(chain.mass, q)
+    R = quat_ops.to_mat(xquat)
+    Iw = R @ _const(chain.inertia, q) @ R.transpose(-1, -2)        # [..,nb,3,3]
+    M = (torch.einsum("...bkc,b,...blc->...kl", jp, m, jp)
+         + torch.einsum("...bkc,...bcd,...bld->...kl", jr, Iw, jr))
+    along = lambda J: torch.einsum("...bkc,...k->...bc", J, qd)
+    f_lin = m[:, None] * (along(djp) - g)
+    Iw_v = lambda v: (Iw @ v[..., None])[..., 0]
+    f_ang = Iw_v(along(djr)) + quat_ops.cross(w, Iw_v(w))
+    return (xpos, xquat), M, (torch.einsum("...bkc,...bc->...k", jp, f_lin)
+                              + torch.einsum("...bkc,...bc->...k", jr, f_ang))

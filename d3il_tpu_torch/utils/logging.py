@@ -3,10 +3,12 @@
 Counterpart of ``d3il_tpu/utils/logging.py``. The reference logs every
 batch loss and the evaluation metrics to wandb; here each run appends one
 JSON object per epoch or event to a file, which survives crashes, diffs
-cleanly and needs no network.
+cleanly and needs no network. ``profile_trace`` wraps a hot section in
+``torch.profiler``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -40,3 +42,26 @@ class RunLogger:
             self.log({"event": "end", "time": round(time.time(), 1)})
             self._f.close()
             self._f = None
+
+
+def profile_trace(trace_dir: str | None):
+    """A ``torch.profiler`` context over a hot section that writes a
+    Chrome trace (``*.pt.trace.json``) under ``trace_dir`` when it exits,
+    recording the CUDA activity too where there is a card; a null context
+    when ``trace_dir`` is falsy. Usage:
+
+        with profile_trace(args.profile_dir) as prof:
+            ... hot section ...
+
+    ``prof`` is the profiler (None for the null context), so the section's
+    events can also be read in the process (``prof.events()``)."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(str(trace_dir)))

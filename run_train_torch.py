@@ -77,12 +77,11 @@ def build_agent_and_data(args, generator):
     with open(os.path.join(task_dir, "eval_files.pkl"), "rb") as f:
         eval_files = pickle.load(f)
     all_dir = os.path.join(task_dir, "all_data")
+    max_len = args.max_len or spec.max_steps
     train_data = ds.load_task_dataset(all_dir, train_files, spec.assemble,
-                                      spec.max_steps, args.window,
-                                      device=device)
+                                      max_len, args.window, device=device)
     val_data = ds.load_task_dataset(all_dir, eval_files, spec.assemble,
-                                    spec.max_steps, args.window,
-                                    device=device)
+                                    max_len, args.window, device=device)
     x, y = ds.all_valid(train_data)
     scaler = Scaler.fit(x, y, device=device)
     obs_dim, act_dim = x.shape[-1], y.shape[-1]
@@ -200,7 +199,8 @@ def run_one(args) -> dict:
 
 def _parser():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", default="pushing", choices=sorted(registry.TASKS))
+    ap.add_argument("--task", default="avoiding",
+                    choices=sorted(registry.TASKS))
     ap.add_argument("--agent", default="bc", choices=sorted(registry.AGENTS))
     ap.add_argument("--data", default="data")
     ap.add_argument("--epochs", type=int, default=60)
@@ -208,6 +208,9 @@ def _parser():
     ap.add_argument("--window", type=int, default=1)
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="pad length of the demonstration tensors "
+                    "(default: the task's horizon)")
     ap.add_argument("--chunk", type=int, default=8,
                     help="action chunk of act and ddpm_encdec")
     ap.add_argument("--ddpm-steps", type=int, default=16,
@@ -220,6 +223,7 @@ def _parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kinematic", action="store_true", default=False,
                     help="fast kinematic-arm eval (default: full dynamics)")
+    ap.add_argument("--no-kinematic", dest="kinematic", action="store_false")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-dir", default=None,
                     help="directory of the run's JSONL metric stream")
@@ -233,17 +237,22 @@ def _parser():
     return ap
 
 
-def main():
-    ap = _parser()
-    args = ap.parse_args()
-    # apply the task's tuned defaults for any arg the user did not pass on
-    # the command line (checked against sys.argv, not default-equality, so an
-    # explicit `--window 1` can force the parser default over train_kw)
-    passed = {a.split("=", 1)[0] for a in sys.argv[1:] if a.startswith("--")}
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line's args, with the task's tuned defaults applied to
+    every arg it does not pass (checked against the flags given, not by
+    default-equality, so an explicit `--window 1` can force the parser
+    default over train_kw)."""
+    argv = sys.argv[1:] if argv is None else argv
+    args = _parser().parse_args(argv)
+    passed = {a.split("=", 1)[0] for a in argv if a.startswith("--")}
     for k, v in registry.TASKS[args.task].train_kw.items():
         if "--" + k.replace("_", "-") not in passed:
             setattr(args, k, v)
-    print(json.dumps(run_one(args)))
+    return args
+
+
+def main():
+    print(json.dumps(run_one(parse_args())))
 
 
 if __name__ == "__main__":

@@ -768,3 +768,45 @@ def test_vision_renderer_and_encoder_on_the_card(cuda_device):
         df = dev_enc(*(x.to(cuda_device) for x in want))
     assert f.shape == (B, 2 * 64 + 4)
     assert _scaled_err(df, f) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_per_env_window_matches_batched_window(cuda_device):
+    """``envs/common._run_substeps_single`` for each of 4 pushing envs on
+    the card (K1 and K3 at a batch of one, the arm's dynamics in plain
+    PyTorch) against the batched window of the same 4 envs (K1, K2 and K3
+    at B = 4), 10 substeps toward the red box from a state two steps into
+    a push: every scene field within 1e-3 max-scaled (K2's qd_pre hold),
+    the controller state within 3e-5; launches per env-window K1 1, K2 0,
+    K3 one per substep."""
+    from d3il_tpu_torch.envs import common
+    B, n_sub = 4, 10
+    params = pushing.PushingParams(n_substeps=n_sub, device=cuda_device,
+                                   q_init=Q_INIT)
+    gen = torch.Generator().manual_seed(5)
+    state = pushing.reset(params, pushing.sample_context(gen, B))
+    tcp, _ = params.tcp_pose(state.scene)
+    quat = torch.tensor([0.0, 1.0, 0.0, 0.0], device=cuda_device)
+    for _ in range(2):
+        act = torch.cat([state.scene.free_pos[:, 0, :2],
+                         torch.full((B, 1), 0.12, device=cuda_device),
+                         quat.expand(B, 4)], dim=1)
+        state, _ = pushing.step(params, state, act)
+    sc, cs = state.scene, state.ctrl
+    des_pos, des_quat = act[:, :3].contiguous(), act[:, 3:].contiguous()
+    sc_b, cs_b = common.run_substeps(params, sc, cs, des_pos, des_quat)
+    counters = (dyn_kernel.ik_window_bm, dyn_kernel.arm_stage_bm,
+                contact_kernel.phase_batched_bm)
+    for e in range(B):
+        n0 = [fn.launches for fn in counters]
+        sc_e, cs_e = common._run_substeps_single(
+            params, type(sc)(*(x[e] for x in sc)),
+            type(cs)(*(x[e] for x in cs)), des_pos[e], des_quat[e], 0.04,
+            False)
+        torch.cuda.synchronize()
+        assert [fn.launches - n for fn, n in zip(counters, n0)] == \
+            [1, 0, n_sub]
+        for name, a, b in zip(sc._fields, sc_e, sc_b):
+            assert _scaled_err(a, b[e]) <= 1e-3, (e, name)
+        for a, b in zip(cs_e, cs_b):
+            assert _scaled_err(a, b[e]) <= 3e-5, e

@@ -2,10 +2,11 @@
 
 In a fresh interpreter with ``sys.modules["jax"] = None`` (so any
 ``import jax`` raises; likewise jaxlib, flax, optax, orbax), every module of
-d3il_tpu_torch and the three entry scripts must import, and no ``d3il_tpu``
-module may have been loaded; likewise tools/gen_demos_torch.py.
-chip_smoke.py and the entry scripts are also read for such imports, since
-chip_smoke.py imports the port only once it has found a card.
+d3il_tpu_torch and the four entry scripts must import, and no ``d3il_tpu``
+module may have been loaded; likewise tools/gen_demos_torch.py and
+tools/render_video_torch.py. chip_smoke.py, the entry scripts and the tools
+are also read for such imports, since chip_smoke.py imports the port only
+once it has found a card.
 """
 import os
 import subprocess
@@ -22,12 +23,13 @@ for banned in ("jax", "jaxlib", "flax", "optax", "orbax"):
 import d3il_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(d3il_tpu_torch.__path__,
                                                "d3il_tpu_torch.")]
-for name in names + ["run_train_torch", "run_eval_torch", "run_vision_torch"]:
+for name in names + ["run_train_torch", "run_eval_torch", "run_vision_torch",
+                     "run_benchmark_torch"]:
     importlib.import_module(name)
 import importlib.util
-spec = importlib.util.spec_from_file_location("gen_demos_torch",
-                                              "tools/gen_demos_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("gen_demos_torch", "render_video_torch"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "envs.stacking", "control.joint_pd", "utils.logging",
              "data.scaler", "data.dataset",
@@ -40,7 +42,9 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "eval.contexts",
              "eval.rollout", "eval.sims", "registry", "convert",
              "vision.renderer", "vision.taskviews", "vision.encoder",
-             "agents.vision"):
+             "agents.vision", "control.cartesian", "engine.solver",
+             "engine.collision", "engine.contact", "engine.step",
+             "envs.common", "ops.spline", "utils.channel_logger"):
     assert "d3il_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
@@ -58,13 +62,14 @@ def test_port_imports_without_jax():
 
 
 def test_scripts_name_no_jax_module():
-    """Every import statement of chip_smoke.py, the three entry scripts and
-    the demo CLI, wherever it stands in the file."""
+    """Every import statement of chip_smoke.py, the four entry scripts and
+    the two tools, wherever it stands in the file."""
     import ast
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "d3il_tpu"}
     for script in ("chip_smoke.py", "run_train_torch.py",
                    "run_eval_torch.py", "run_vision_torch.py",
-                   "tools/gen_demos_torch.py"):
+                   "run_benchmark_torch.py", "tools/gen_demos_torch.py",
+                   "tools/render_video_torch.py"):
         with open(os.path.join(ROOT, script)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
