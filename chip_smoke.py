@@ -180,11 +180,22 @@ Phases (each fatal on failure):
      checks of the row's schema (the JAX package's keys and
      wall_seconds), device cuda, the metrics' range and that the rendered
      table holds the row;
- 13. print the ``kernels`` JSON line (with ``design``, the PR whose design
+ 13. the data-parallel path: a process group of one rank started by
+     parallel/distributed.initialize_from_env from the D3IL_* variables
+     (fatal unless its backend is NCCL); one push step of phase 3's batch
+     through parallel/mesh.run_sharded held against the direct step on the
+     same state (DP_TOL max-scaled; launches K1 1, K2 35, K3 35), one bc
+     epoch on data/pushing with the mesh against one without (same
+     history, weights to DP_TOL), phase 4's gmm through PushingSim at
+     DP_SIM_STEPS dynamic steps with the mesh against without (same
+     metrics, final states to DP_TOL); the seconds of each; the group
+     destroyed before phase 14;
+ 14. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
      ``launches_demos``, ``launches_vision`` (phase 10's rollouts; on the
      K3 rows, sorting_2's alone), ``launches_per_env`` (phase 11's per-env
-     windows, K1-K4 rows), and one K3 row per scene of phases 5-7,
+     windows, K1-K4 rows), ``launches_data_parallel`` (phase 13's sharded
+     step, K1-K4 rows), and one K3 row per scene of phases 5-7,
      a general scene's with ``k3_report``'s figures),
      the card line, and last {"ok": true, "device": {...}}.
 """
@@ -292,6 +303,13 @@ PER_ENV_CS_TOL = 3e-5
 # the sweep phase: one benchmark row through run_benchmark_torch.py
 SWEEP_ARGS = ("--tasks", "avoiding", "--agents", "gmm", "--seeds", "0",
               "--epochs", "1", "--n-trajs", "16", "--eval-max-steps", "2")
+# the data-parallel phase (13): NCCL at world size 1; phase 3's push step,
+# DP_FIT_EPOCHS of bc on data/pushing and phase 4's gmm PushingSim at
+# DP_SIM_STEPS dynamic steps, each with the mesh against without, held to
+# DP_TOL max-scaled (equal where the kernels repeat bitwise)
+DP_FIT_EPOCHS = 1
+DP_SIM_STEPS = 2
+DP_TOL = 1e-5
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
@@ -637,8 +655,8 @@ def profile_eval_step(spec, agent, q_init, card):
     ctxs = sims._fixed_or_sampled(sims.ref_contexts.pushing_contexts,
                                   pushing.sample_context, EVAL_CONTEXTS, True,
                                   params.device)
-    cidx, gen = sims._grid(EVAL_CONTEXTS, EVAL_TRAJS, 0, params.device)
-    apply = agent.policy_apply(gen)
+    cidx = sims._grid(EVAL_CONTEXTS, EVAL_TRAJS, params.device)
+    apply = agent.policy_apply(sims.policy_generator(0, params.device))
     init, body = rollout.make_rod_stepper(params, pushing.reset, pushing.step,
                                           pushing.get_observation, apply)
 
@@ -758,7 +776,7 @@ def rollout_substep_kernels(spec, q_init, kinematic, tols):
     ctxs = sims._fixed_or_sampled(sims.ref_contexts.pushing_contexts,
                                   pushing.sample_context, EVAL_CONTEXTS, True,
                                   params.device)
-    cidx, _ = sims._grid(EVAL_CONTEXTS, EVAL_TRAJS, 0, params.device)
+    cidx = sims._grid(EVAL_CONTEXTS, EVAL_TRAJS, params.device)
     state = pushing.reset(params, tuple(x[cidx] for x in ctxs))
     tcp, _ = params.tcp_pose(state.scene)
     hold = hold_action(tcp)
@@ -1242,7 +1260,7 @@ def rod_check_scene(spec, params):
     env = spec.env()
     C, T = rod_workload(spec.name)
     sim = spec.make_sim(n_contexts=C, n_trajectories_per_context=T)
-    cidx, _ = sims._grid(C, T, 0, params.device)
+    cidx = sims._grid(C, T, params.device)
     ctx = tuple(x[cidx] for x in sim.contexts(params))
     if spec.name == "inserting":
         sc = env.reset(params, ctx).scene
@@ -1515,7 +1533,7 @@ def stacking_check_scene(params, env):
     from d3il_tpu_torch.eval import sims
     sim = sims.StackingSim(n_contexts=STACK_CONTEXTS,
                            n_trajectories_per_context=STACK_TRAJS)
-    cidx, _ = sims._grid(STACK_CONTEXTS, STACK_TRAJS, 0, params.device)
+    cidx = sims._grid(STACK_CONTEXTS, STACK_TRAJS, params.device)
     sc = env.reset(params, tuple(x[cidx] for x in sim.contexts(params))).scene
     fp, fq = sc.free_pos.clone(), sc.free_quat.clone()
     fp[:, 0] = box_between_fingers(params, sc)
@@ -2055,7 +2073,7 @@ def vision_views(spec, params, card, problems):
     sim = spec.make_sim(seed=0, n_contexts=n_ctx,
                         n_trajectories_per_context=n_traj)
     env = sim.env()
-    cidx, _ = sims._grid(n_ctx, n_traj, 0, params.device)
+    cidx = sims._grid(n_ctx, n_traj, params.device)
     state = env.reset(params, tuple(x[cidx] for x in sim.contexts(params)))
     tcp, _ = params.tcp_pose(state.scene)
     obs = torch.cat([tcp[:, :2], env.get_observation(params, state)], 1)
@@ -2474,6 +2492,142 @@ def sweep_phase(card):
         raise SystemExit("sweep phase failed: " + "; ".join(problems))
 
 
+def data_parallel_phase(params, dp_in, ckpt, counters, card):
+    """Phase 13: the data-parallel path (``parallel/``) on a process group
+    of one rank, NCCL on the card, started by
+    ``distributed.initialize_from_env`` from the D3IL_* variables: one push
+    step of phase 3's batch through ``mesh.run_sharded`` against the
+    direct step on the same state (launches K1 1, K2 35, K3 35), one bc
+    epoch on data/pushing with the mesh against one without, and phase 4's
+    gmm through PushingSim at DP_SIM_STEPS dynamic steps with the mesh
+    against without. Returns the sharded step's launch counts."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    import run_eval_torch
+    import run_train_torch
+    from d3il_tpu_torch.agents import base
+    from d3il_tpu_torch.envs import pushing
+    from d3il_tpu_torch.parallel import distributed as pdist
+    from d3il_tpu_torch.parallel import mesh as pmesh
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {"D3IL_COORD_ADDR": f"127.0.0.1:{port}", "D3IL_NUM_PROCS": "1",
+           "D3IL_PROC_ID": "0"}
+    os.environ.update(env)
+    problems = []
+
+    def held(got, want):
+        """(bitwise equal, max scaled error) over paired tensor leaves."""
+        pairs = [(a, b) for a, b in zip(pmesh.tree_leaves(got),
+                                        pmesh.tree_leaves(want))
+                 if a.numel()]
+        return (all(torch.equal(a, b) for a, b in pairs),
+                max(scaled_err(a, b) for a, b in pairs))
+
+    try:
+        t0 = time.perf_counter()
+        started = pdist.initialize_from_env()
+        backend = dist.get_backend() if started else None
+        mesh = pdist.global_mesh()
+        log(f"data parallel: initialize_from_env {started}, backend "
+            f"{backend}, world {mesh.world}, rank {mesh.rank}, device "
+            f"{mesh.device}, {time.perf_counter() - t0:.2f} s")
+        if not started or backend != "nccl" or mesh.world != 1:
+            raise SystemExit("data-parallel phase failed: no NCCL process "
+                             "group of one rank")
+
+        # one push step of the main path's batch, direct and sharded
+        state, act = dp_in
+        step = lambda s, a: pushing.step(params, s, a)
+        t0 = time.perf_counter()
+        want = step(state, act)
+        torch.cuda.synchronize()
+        t_direct = time.perf_counter() - t0
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = pmesh.run_sharded(step, state, act, mesh=mesh)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        equal, err = held(got, want)
+        n_sub = params.n_substeps
+        expect = {"K1": 1, "K2": n_sub, "K3": n_sub, "K4": 0}
+        log(f"data parallel: push step at B = {B} direct {t_direct:.2f} s, "
+            f"through run_sharded {t_sharded:.2f} s; every leaf equal: "
+            f"{equal}, max scaled err {err:.3e} (tol {DP_TOL:g}); launches "
+            f"{launches} expected {expect} [{card}]")
+        if not err <= DP_TOL:
+            problems.append(f"sharded step err {err:.3e}")
+        if launches != expect:
+            problems.append(f"sharded step launches {launches} != {expect}")
+
+        # one bc epoch on data/pushing, without the mesh and with it
+        targs = run_train_torch.make_args(task="pushing", agent="bc",
+                                          device="cuda",
+                                          data=os.path.join(ROOT, "data"))
+        _, agent, _, train, val = run_train_torch.build_agent_and_data(
+            targs, torch.Generator(device="cuda").manual_seed(0))
+        cfg = base.TrainConfig(epochs=DP_FIT_EPOCHS,
+                               batch_size=targs.batch_size,
+                               window_size=targs.window,
+                               eval_every_n_epochs=1)
+        fits = []
+        for m in (None, mesh):
+            t0 = time.perf_counter()
+            _, final, hist = base.fit(
+                agent.loss_fn(), agent.params, train, val, cfg,
+                torch.Generator(device="cuda").manual_seed(1), mesh=m)
+            torch.cuda.synchronize()
+            fits.append((final, hist, time.perf_counter() - t0))
+        (f0, h0, s0), (f1, h1, s1) = fits
+        equal, err = held(f1, f0)
+        hist_err = max(abs(r1[k] - r0[k]) / max(abs(r0[k]), 1.0)
+                       for r0, r1 in zip(h0, h1) for k in r0)
+        log(f"data parallel: bc fit, {cfg.epochs} epoch of "
+            f"{train.n_windows // cfg.batch_size} steps at batch "
+            f"{cfg.batch_size} on data/pushing, without the mesh {s0:.2f} s, "
+            f"with it {s1:.2f} s; history {h1}, equal: {h0 == h1}, max "
+            f"scaled err {hist_err:.3e}; weights equal: {equal}, max scaled "
+            f"err {err:.3e} [{card}]")
+        if len(h0) != len(h1) or not hist_err <= DP_TOL or not err <= DP_TOL:
+            problems.append(f"bc fit with the mesh differs (history err "
+                            f"{hist_err:.3e}, weights err {err:.3e})")
+
+        # phase 4's gmm through PushingSim, without the mesh and with it
+        spec, gmm, _ = run_eval_torch.load_agent(ckpt, "cuda")
+        sim_params = spec.make_params(kinematic=False, max_steps=DP_SIM_STEPS,
+                                      device="cuda", q_init=params.q_init)
+        sims = []
+        for m in (None, mesh):
+            sim = spec.make_sim(seed=0, n_contexts=EVAL_CONTEXTS,
+                                n_trajectories_per_context=EVAL_TRAJS)
+            t0 = time.perf_counter()
+            st, dones = sim.run_episodes(gmm, sim_params, mesh=m)
+            torch.cuda.synchronize()
+            sims.append((st, dones, sim.score(st), time.perf_counter() - t0))
+        (st0, d0, out0, s0), (st1, d1, out1, s1) = sims
+        equal, err = held((st1, d1), (st0, d0))
+        log(f"data parallel: gmm PushingSim, {EVAL_CONTEXTS * EVAL_TRAJS} "
+            f"episodes x {DP_SIM_STEPS} dynamic steps, without the mesh "
+            f"{s0:.2f} s ({out0}), with it {s1:.2f} s ({out1}); final states "
+            f"equal: {equal}, max scaled err {err:.3e} [{card}]")
+        if out0 != out1 or not err <= DP_TOL:
+            problems.append(f"PushingSim with the mesh differs ({out1} vs "
+                            f"{out0}, err {err:.3e})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    if problems:
+        raise SystemExit("data-parallel phase failed: " + "; ".join(problems))
+    return launches
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
@@ -2699,6 +2853,7 @@ def main(kernels_only=False):
     profile_step(params, state, hold,
                  os.path.join(ROOT, "build", "chip_smoke", "trace"))
     per_env_in = per_env_inputs(state, act)
+    dp_in = (state, act)        # phase 13's push step
 
     # ---- phase 4: the evaluation path -----------------------------------
     log(f"phase 4: {since()}")
@@ -2807,8 +2962,14 @@ def main(kernels_only=False):
     sweep_phase(card)
     log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 13: report -------------------------------------------------
+    # ---- phase 13: the data-parallel path ---------------------------------
     log(f"phase 13: {since()}")
+    t0 = time.perf_counter()
+    dp_launches = data_parallel_phase(params, dp_in, ckpt, counters, card)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 14: report -------------------------------------------------
+    log(f"phase 14: {since()}")
     # ``launches`` is the main path's count for K1-K3; K4, which no path
     # calls, reports its one launch on that path's window instead
     # (launches_path 0, launches_window_check 1); each rod scene's K3 row
@@ -2822,7 +2983,8 @@ def main(kernels_only=False):
              launches_eval_kinematic=eval_launches["kinematic"][kk["key"]],
              launches_demos=demo_launches[kk["key"]],
              launches_vision=vision_launches[kk["key"]],
-             launches_per_env=per_env_launches[kk["key"]])
+             launches_per_env=per_env_launches[kk["key"]],
+             launches_data_parallel=dp_launches[kk["key"]])
         for kk in kernels if kk.get("report", True)] + [
         line(kk, launches=kk["launches_eval_dynamic"],
              launches_eval_dynamic=kk["launches_eval_dynamic"],

@@ -2,7 +2,10 @@
 
 Counterpart of ``d3il_tpu/eval/sims.py``: every (context x trajectory)
 episode is one row of a batched rollout running in lockstep on the device,
-one Python loop over env steps under ``torch.no_grad()``.
+one Python loop over env steps under ``torch.no_grad()``. Under a process
+group of more than one process (or with a ``mesh``) each rank rolls out
+its own rows of the grid and every rank scores the whole grid
+(``parallel/mesh.run_sharded``).
 
 Each Sim exposes ``test_agent(agent) -> dict`` returning the reference's
 metrics (success rate, behavioral entropy, KL, composite score) with the
@@ -22,6 +25,7 @@ import torch
 
 from d3il_tpu_torch.eval import contexts as ref_contexts
 from d3il_tpu_torch.eval import metrics, rollout
+from d3il_tpu_torch.parallel import mesh as pmesh
 
 CONTEXT_SEED = 2
 
@@ -41,12 +45,17 @@ def _fixed_or_sampled(loader, sample_fn, n: int, use_fixed: bool, device):
     return sample_fn(gen, n)
 
 
-def _grid(n_contexts: int, n_trajs: int, seed: int, device):
-    """Flattened (context index [C*T], agent generator) grid: the policy's
-    noise for all episodes comes from one generator seeded seed + 1."""
-    cidx = torch.as_tensor(np.repeat(np.arange(n_contexts), n_trajs),
+def _grid(n_contexts: int, n_trajs: int, device):
+    """The flattened grid's context index of every episode [C*T]."""
+    return torch.as_tensor(np.repeat(np.arange(n_contexts), n_trajs),
                            device=device)
-    return cidx, torch.Generator(device=device).manual_seed(seed + 1)
+
+
+def policy_generator(seed: int, device, mesh=None):
+    """The generator of the policy's noise in a Sim seeded ``seed``: one
+    generator for all of a rank's episodes, seeded seed + 1 (on rank 0 of
+    a ``mesh``; ``pmesh.rank_generator``)."""
+    return pmesh.rank_generator(mesh, seed + 1, device)
 
 
 class _TaskSim:
@@ -76,18 +85,33 @@ class _TaskSim:
             params, env.reset, env.step, env.get_observation, policy_apply,
             pos_dim=self.pos_dim)
 
-    def run_episodes(self, agent, params=None, on_step=None):
+    def run_episodes(self, agent, params=None, on_step=None, mesh=None):
         """Roll every (context, trajectory) episode to params.max_steps;
-        returns (final env state [C*T, ...], dones [max_steps, C*T])."""
+        returns (final env state [C*T, ...], dones [max_steps, C*T]).
+
+        The policy's noise comes from ``policy_generator``. Over a ``mesh``
+        (by default a process group of more than one process) each rank
+        rolls out its block of the grid, padded to a multiple of the world
+        size, with a generator of its own, and the final states and dones
+        are gathered and cut back to the grid on every rank; ``on_step``
+        sees this rank's carry."""
         env = self.env()
         params = params or self.default_params()
         ctxs = self.contexts(params)
-        cidx, gen = _grid(self.n_contexts, self.n_trajectories_per_context,
-                          self.seed, params.device)
-        run = self.make_rollout(params, env, agent.policy_apply(gen))
-        carry0 = agent.init_carry(self.obs_dim(), cidx.shape[0])
-        return run(agent.params, carry0, tuple(x[cidx] for x in ctxs),
-                   on_step=on_step)
+        cidx = _grid(self.n_contexts, self.n_trajectories_per_context,
+                     params.device)
+        mesh = mesh if mesh is not None else pmesh.default_mesh()
+
+        def episodes(rows):
+            gen = policy_generator(self.seed, params.device, mesh)
+            run = self.make_rollout(params, env, agent.policy_apply(gen))
+            carry0 = agent.init_carry(self.obs_dim(), rows.shape[0])
+            state, dones = run(agent.params, carry0,
+                               tuple(x[rows] for x in ctxs), on_step=on_step)
+            return state, dones.T
+
+        state, dones = pmesh.run_sharded(episodes, cidx, mesh=mesh)
+        return state, dones.T
 
     def test_agent(self, agent, params=None):
         state, _ = self.run_episodes(agent, params)

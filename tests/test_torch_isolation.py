@@ -44,7 +44,8 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "vision.renderer", "vision.taskviews", "vision.encoder",
              "agents.vision", "control.cartesian", "engine.solver",
              "engine.collision", "engine.contact", "engine.step",
-             "envs.common", "ops.spline", "utils.channel_logger"):
+             "envs.common", "ops.spline", "utils.channel_logger",
+             "parallel.mesh", "parallel.distributed"):
     assert "d3il_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
@@ -111,6 +112,9 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
         dataset.load_task_dataset("missing", [], None, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         base.load_checkpoint("missing.pt")
+    from d3il_tpu_torch.parallel import mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.data_mesh()
     import run_eval_torch
     import run_train_torch
     assert run_train_torch.make_args().device == "cuda"

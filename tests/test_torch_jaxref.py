@@ -6,6 +6,12 @@ Inputs are made with NumPy from a seed and handed to both sides; every
 comparison states its tolerance. Each test file builds the JAX task params
 at most once (module-scoped fixtures) and keeps batches and windows tiny.
 """
+import json
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -14,6 +20,39 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 HOLD_QUAT = np.array([0.0, 1.0, 0.0, 0.0])
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn_ranks(script: str, n: int, *args, timeout=300):
+    """``python -c script *args`` as n OS processes joined through the
+    D3IL_* variables (``parallel/distributed.initialize_from_env``; gloo on
+    the CPU, one thread each); returns each rank's last stdout line as
+    JSON, in rank order. A worker that fails fails the test with its
+    output; none outlives the call."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for pid in range(n):
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                   D3IL_COORD_ADDR=f"127.0.0.1:{port}",
+                   D3IL_NUM_PROCS=str(n), D3IL_PROC_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script, *args], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"worker failed:\n{out}\n{err}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
 
 
 def assert_scaled(a, b, atol, name=""):

@@ -1,6 +1,7 @@
 """A 2-step batched pushing episode: port == ``jax.vmap(pushing.step)``,
 under full arm dynamics and in kinematic mode, and a 3-step bc rollout
-through PushingSim on both sides.
+through PushingSim on both sides, the port's also sharded over two gloo
+processes.
 
 Both sides build PushingParams(n_substeps=2) with the JAX package's start
 posture (carried across by ``convert.params_from_numpy``), reset B = 4 envs
@@ -11,6 +12,8 @@ kernels' plain versions. Tolerances are those of tests/test_substep_bm.py.
 Every test that needs the JAX package's PushingParams is in this file, beside
 the two module-scoped fixtures that build them (dynamic and kinematic).
 """
+import pickle
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,7 @@ import torch
 from test_torch_jaxref import (HOLD_QUAT, actions, assert_scaled,
                                check_rod_state, contexts, jax_pushing_params,
                                np_tree, port_pushing_params, runner_noise,
-                               tiny_agents)
+                               spawn_ranks, tiny_agents)
 
 from d3il_tpu.control import offline_ik as joffline_ik
 from d3il_tpu.data import experts_jax as jexperts
@@ -208,24 +211,24 @@ def _jax_sim_final_state(jsim, jagent, jparams):
                                jparams.max_steps, 10)
 
 
-def test_bc_rollout_through_pushing_sim_matches(kin_pair, monkeypatch):
-    """A 3-step bc rollout of 2 contexts x 2 trajectories through
-    PushingSim, weights carried across by ``convert``: the final scene agrees
-    to 3e-4 scaled, success / mode / t exactly, and the metrics to 1e-5. The
-    second context's episodes finish at step 1: their state is the one after
-    that step (t == 1), frozen since."""
-    jparams, params = kin_pair
+@pytest.fixture(scope="module")
+def bc_sim(kin_pair):
+    """The bc case of PushingSim: 2 contexts x 2 trajectories, 3 kinematic
+    steps; the JAX Sim's final state (its one compile), the port's agent
+    with the JAX weights, and the contexts."""
+    jparams, _ = kin_pair
     jagent, agent = tiny_agents("bc", hidden=16, layers=2, seed=3)
     ctxs = _sim_contexts()
-    monkeypatch.setattr(jsims.ref_contexts, "pushing_contexts", lambda: ctxs)
-    monkeypatch.setattr(sims.ref_contexts, "pushing_contexts", lambda: ctxs)
-    monkeypatch.setattr(jparams, "max_steps", 3)
-    monkeypatch.setattr(params, "max_steps", 3)
-    jsim = jsims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
-    sim = sims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsims.ref_contexts, "pushing_contexts", lambda: ctxs)
+        mp.setattr(jparams, "max_steps", 3)
+        jsim = jsims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
+        jstate = np_tree(_jax_sim_final_state(jsim, jagent, jparams))
+    return jstate, agent, ctxs
 
-    jstate = np_tree(_jax_sim_final_state(jsim, jagent, jparams))
-    state, dones = sim.run_episodes(agent, params)
+
+def _check_bc_sim_state(jstate, state, dones):
+    """The final scene to 3e-4 scaled, success / mode / t exactly."""
     ps = convert.state_to_numpy(state)
     for name in SCENE_FIELDS:
         assert_scaled(ps["scene"][name], getattr(jstate.scene, name), 3e-4,
@@ -237,6 +240,22 @@ def test_bc_rollout_through_pushing_sim_matches(kin_pair, monkeypatch):
     np.testing.assert_array_equal(ps["success"], [False, False, True, True])
     np.testing.assert_array_equal(dones.numpy()[0], [False, False, True, True])
     assert dones.numpy()[-1].all()        # t reaches max_steps - 1
+
+
+def test_bc_rollout_through_pushing_sim_matches(kin_pair, bc_sim,
+                                                monkeypatch):
+    """A 3-step bc rollout of 2 contexts x 2 trajectories through
+    PushingSim, weights carried across by ``convert``: the final scene agrees
+    to 3e-4 scaled, success / mode / t exactly, and the metrics to 1e-5. The
+    second context's episodes finish at step 1: their state is the one after
+    that step (t == 1), frozen since."""
+    _, params = kin_pair
+    jstate, agent, ctxs = bc_sim
+    monkeypatch.setattr(sims.ref_contexts, "pushing_contexts", lambda: ctxs)
+    monkeypatch.setattr(params, "max_steps", 3)
+    sim = sims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
+    state, dones = sim.run_episodes(agent, params)
+    _check_bc_sim_state(jstate, state, dones)
     # sims.py:151-154, on the final state already in hand
     want = {k: float(v) for k, v in jmetrics.pushing_score(
         jnp.asarray(jstate.success, jnp.float32).reshape(2, 2),
@@ -246,6 +265,64 @@ def test_bc_rollout_through_pushing_sim_matches(kin_pair, monkeypatch):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, err_msg=k)
     assert got["success_rate"] == 0.5
+
+
+SHARDED_SIM = r"""
+import json, pickle, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from d3il_tpu_torch import convert, registry
+from d3il_tpu_torch.data.scaler import Scaler
+from d3il_tpu_torch.eval import sims
+from d3il_tpu_torch.parallel import distributed as pdist
+
+assert pdist.initialize_from_env(device="cpu")
+rank, path = dist.get_rank(), sys.argv[1]
+with open(path + ".pkl", "rb") as f:
+    q_init, ctxs = pickle.load(f)
+ck = torch.load(path + ".pt")
+sims.ref_contexts.pushing_contexts = lambda: ctxs
+params = convert.params_from_numpy(q_init, device="cpu", n_substeps=2,
+                                   max_steps=3, kinematic=True)
+agent, _ = registry.make_agent("bc", torch.Generator().manual_seed(0), 10, 2,
+                               Scaler(**ck["scaler"]), hidden_dim=16,
+                               num_hidden_layers=2)
+agent.params = ck["params"]
+sim = sims.PushingSim(n_contexts=2, n_trajectories_per_context=2)
+state, dones = sim.run_episodes(agent, params)    # over the default group
+torch.save({"state": state, "dones": dones, "score": sim.score(state)},
+           f"{path}.{rank}")
+dist.destroy_process_group()
+print(json.dumps({"rank": rank}))
+"""
+
+
+def test_bc_pushing_sim_sharded_over_two_ranks_matches(kin_pair, bc_sim,
+                                                       tmp_path):
+    """The same bc rollout with PushingSim's grid sharded over two gloo
+    processes (``parallel/mesh.run_sharded``, two episodes each), against
+    the JAX Sim's final state, which ran over conftest's 8 virtual devices:
+    on both ranks the whole grid at the tolerances of
+    test_bc_rollout_through_pushing_sim_matches."""
+    jparams, _ = kin_pair
+    jstate, agent, ctxs = bc_sim
+    path = str(tmp_path / "case")
+    with open(path + ".pkl", "wb") as f:
+        pickle.dump((jparams.q_init, ctxs), f)
+    torch.save({"params": agent.params,
+                "scaler": agent.scaler._asdict()}, path + ".pt")
+    assert [o["rank"] for o in spawn_ranks(SHARDED_SIM, 2, path)] == [0, 1]
+    want = {k: float(v) for k, v in jmetrics.pushing_score(
+        jnp.asarray(jstate.success, jnp.float32).reshape(2, 2),
+        jnp.asarray(jstate.mode).reshape(2, 2)).items()}
+    for rank in range(2):
+        got = torch.load(f"{path}.{rank}", weights_only=False)
+        _check_bc_sim_state(jstate, got["state"], got["dones"])
+        assert set(got["score"]) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got["score"][k], want[k], atol=1e-5,
+                                       err_msg=k)
 
 
 def test_rollout_freezes_every_leaf_of_finished_episodes(kin_pair,
