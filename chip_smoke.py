@@ -14,6 +14,11 @@ copied into a checkout of an earlier commit times that commit's kernels,
 so runs of both checkouts in turns (old, new, new, old) in one call
 compare two designs on one card.
 
+``python3 chip_smoke.py --launch-only`` runs phase 1's build and phase
+13's launcher part alone (``launch_phase``, on a gmm of one epoch trained
+for it): on a host with several cards, the quick check that the entry
+points run over every card and agree with card 0.
+
 Phases (each fatal on failure):
   1. device check; build the kernels from csrc/ (one nvcc per source, in
      parallel) and print the build seconds and each kernel's ptxas
@@ -177,9 +182,9 @@ Phases (each fatal on failure):
      (avoiding, gmm, seed 0, 1 epoch, 16 episodes of 2 steps) in a
      subprocess into build/chip_smoke/sweep, run again (it must skip the
      recorded row: ``[done]``), then tools/make_results.py on its rows;
-     checks of the row's schema (the JAX package's keys and
-     wall_seconds), device cuda, the metrics' range and that the rendered
-     table holds the row;
+     checks of the row's schema (the JAX package's keys, wall_seconds
+     and ranks), device cuda, ranks every visible card, the metrics' range
+     and that the rendered table holds the row;
  13. the data-parallel path: a process group of one rank started by
      parallel/distributed.initialize_from_env from the D3IL_* variables
      (fatal unless its backend is NCCL); one push step of phase 3's batch
@@ -189,7 +194,22 @@ Phases (each fatal on failure):
      history, weights to DP_TOL), phase 4's gmm through PushingSim at
      DP_SIM_STEPS dynamic steps with the mesh against without (same
      metrics, final states to DP_TOL); the seconds of each; the group
-     destroyed before phase 14;
+     destroyed; then the entry points' launcher
+     (parallel/distributed.run_on_local_devices, ``launch_phase``):
+     run_train_torch.main on a bc row (LAUNCH_EPOCHS on data/pushing,
+     --skip-eval) in this process at one rank against run_one called
+     directly (weights and losses bitwise equal; on one card this holds
+     main's path, not the spawn / NCCL code); where two or more cards are
+     visible, run_train_torch.py on that row and run_eval_torch.py on its
+     checkpoint as subprocesses over every card against
+     CUDA_VISIBLE_DEVICES=0 (weights LAUNCH_W_TOL, losses
+     LAUNCH_LOSS_RTOL, one log file, the rows' ranks, the same metrics)
+     and the PushingSim grid at DP_SIM_STEPS dynamic steps over
+     LAUNCH_RANKS NCCL ranks against one, under the bc row's weights
+     (final states to DP_TOL, the same metrics) and phase 4's gmm (finite,
+     metrics in range; not held row for row: each rank draws its policy's
+     noise from its own generator), with rank 0's launches; else the line
+     "phase 13: ranks 1 (one card visible)";
  14. print the ``kernels`` JSON line (with ``design``, the PR whose design
      each kernel is, ``device_ms``, the B = 480 times and bounds of K1-K3,
      ``launches_demos``, ``launches_vision`` (phase 10's rollouts; on the
@@ -310,6 +330,19 @@ SWEEP_ARGS = ("--tasks", "avoiding", "--agents", "gmm", "--seeds", "0",
 DP_FIT_EPOCHS = 1
 DP_SIM_STEPS = 2
 DP_TOL = 1e-5
+# phase 13's launcher (parallel/distributed.run_on_local_devices): a bc row
+# of run_train_torch.main (LAUNCH_EPOCHS on data/pushing, --skip-eval) at
+# one rank against run_one called directly (bitwise); where two or more
+# cards are visible, run_train_torch.py and run_eval_torch.py over every
+# card against card 0 (weights to LAUNCH_W_TOL absolute, losses to
+# LAUNCH_LOSS_RTOL relative: the JAX test's bars,
+# tests/test_parallel.py:73-109), and the PushingSim grid at DP_SIM_STEPS
+# dynamic steps over LAUNCH_RANKS NCCL ranks against one (final states to
+# DP_TOL, tests/test_parallel.py:54-57)
+LAUNCH_EPOCHS = 1
+LAUNCH_RANKS = 2
+LAUNCH_W_TOL = 2e-4
+LAUNCH_LOSS_RTOL = 2e-4
 SM_SHARED_BYTES = 233472    # H100 shared memory per SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024     # shared memory CUDA reserves per block
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, FP32 outside the tensor cores
@@ -2433,8 +2466,10 @@ def sweep_phase(card):
     row (SWEEP_ARGS) in a subprocess of run_benchmark_torch.py (its row in
     a subprocess of run_train_torch.py), then the same command again, which
     must skip the recorded row, then tools/make_results.py on the rows;
-    checks of the row's schema, device, metrics' range and wall seconds."""
+    checks of the row's schema, device, metrics' range, wall seconds and
+    ranks (every visible card)."""
     import shutil
+    import torch
     out = os.path.join(ROOT, "build", "chip_smoke", "sweep")
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, os.path.join(ROOT, "run_benchmark_torch.py"),
@@ -2465,7 +2500,7 @@ def sweep_phase(card):
     log(f"sweep row: {json.dumps(row)}")
     keys = {"task", "agent", "seed", "eval_mode", "data", "device", "date",
             "train_seconds", "final_train_loss", "success_rate", "entropy",
-            "score", "eval_seconds", "wall_seconds"}
+            "score", "eval_seconds", "wall_seconds", "ranks"}
     problems = []
     if len(rows) != 1 or "error" in row:
         problems.append(f"{len(rows)} rows, error {row.get('error')}")
@@ -2482,6 +2517,9 @@ def sweep_phase(card):
             problems.append("metrics out of [0, 1]")
         if not 0 < row["wall_seconds"] <= runs[0][1]:
             problems.append(f"wall_seconds {row['wall_seconds']}")
+        if row["ranks"] != torch.cuda.device_count():
+            problems.append(f"ranks {row['ranks']}: the row ran on "
+                            "fewer than every visible card")
     if "[done] avoiding gmm seed 0" not in runs[1][0].stdout:
         problems.append("the rerun did not skip the recorded row")
     if r.returncode != 0 or "## avoiding" not in text or not any(
@@ -2628,14 +2666,255 @@ def data_parallel_phase(params, dp_in, ckpt, counters, card):
     return launches
 
 
+def kernel_counters():
+    """The kernel wrappers whose launch counts the phases read, by key."""
+    from d3il_tpu_torch.engine import contact_kernel, dyn_kernel
+    return {"K1": dyn_kernel.ik_window_bm, "K2": dyn_kernel.arm_stage_bm,
+            "K3": contact_kernel.phase_batched_bm,
+            "K4": dyn_kernel.feedforward_bm}
+
+
+def launch_sim(ckpt, q_init, steps):
+    """One rank's ``eval_rollout`` of the agent at ``ckpt`` (PushingSim's
+    EVAL_CONTEXTS x EVAL_TRAJS grid, ``steps`` dynamic steps): the
+    gathered final state and dones (on the CPU), the metrics, this rank's
+    launches, the seconds of the steps and the world size. A module-level
+    function, so that ``run_on_local_devices`` can hand it to a rank."""
+    import run_eval_torch
+    from d3il_tpu_torch.parallel import distributed as pdist
+    from d3il_tpu_torch.parallel import mesh as pmesh
+    spec, agent, _ = run_eval_torch.load_agent(ckpt, "cuda")
+    state, dones, metrics, launches, seconds, _, _ = eval_rollout(
+        spec, agent, q_init, False, steps, kernel_counters(), None,
+        watch=False)
+    return {"leaves": [x.cpu() for x in pmesh.tree_leaves((state, dones))],
+            "metrics": metrics, "seconds": seconds, "launches": launches,
+            "world": pmesh.data_mesh(device="cuda").world,
+            "rank": pdist.process_index()}
+
+
+def launch_sims(sims):
+    """What each of phase 13's NCCL ranks runs: ``launch_sim`` of each
+    (name, ckpt, q_init, steps) of ``sims``."""
+    return {name: launch_sim(*a) for name, *a in sims}
+
+
+def run_entry(argv, env=None):
+    """An entry script run as a user runs it, a subprocess from the repo
+    root with ``env`` over this process's variables: its last JSON line
+    and its seconds. Fatal if it fails."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *argv], cwd=ROOT,
+                       env={**os.environ, **(env or {})},
+                       capture_output=True, text=True, timeout=900)
+    rows = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode != 0 or not rows:
+        raise SystemExit(f"{argv[0]} failed (rc {r.returncode}):\n"
+                         + (r.stdout + r.stderr)[-2000:])
+    return json.loads(rows[-1]), time.perf_counter() - t0
+
+
+def launch_phase(gmm_ckpt, q_init, card):
+    """Phase 13's launcher part. In this process, run_train_torch.main on a
+    bc row (LAUNCH_EPOCHS on data/pushing, --skip-eval; --device cuda on
+    one card, cuda:0 on more) against run_one called directly: bitwise
+    equal weights and losses, one printed row with ``ranks`` 1. On one
+    card main runs its one rank in this process, so this holds main's path
+    but none of the spawn / NCCL code; only the branch below, where two or
+    more cards are visible, runs that. There:
+    run_train_torch.py and then run_eval_torch.py on its checkpoint, each a
+    subprocess as a user runs it, with every card visible (one rank a card)
+    against CUDA_VISIBLE_DEVICES=0 (one rank): weights LAUNCH_W_TOL, losses
+    LAUNCH_LOSS_RTOL, one log file with one start record, the rows'
+    ``ranks``, the same metrics; and in this process the PushingSim grid
+    over LAUNCH_RANKS NCCL ranks against one, under the bc row's weights
+    (final states to DP_TOL, the same metrics; a deterministic policy,
+    since each rank draws a stochastic policy's noise from a generator of
+    its own) and under phase 4's gmm (finite, metrics in range), with
+    rank 0's launches. Returns the printed summary."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    import run_train_torch
+    from d3il_tpu_torch.agents import base
+    from d3il_tpu_torch.parallel import distributed as pdist
+    out = os.path.join(ROOT, "build", "chip_smoke", "launch")
+    shutil.rmtree(out, ignore_errors=True)
+    problems = []
+
+    def row_argv(name):
+        return ["--task", "pushing", "--agent", "bc", "--epochs",
+                str(LAUNCH_EPOCHS), "--skip-eval", "--data",
+                os.path.join(ROOT, "data"), "--ckpt",
+                os.path.join(out, name, "bc.pt"), "--log-dir",
+                os.path.join(out, name, "log")]
+
+    def trained(name):
+        """The saved weights, the logged epoch losses, the number of log
+        files and of start records of a row."""
+        params = base.load_checkpoint(os.path.join(out, name, "bc.pt"),
+                                      device="cpu")["params"]
+        logs = os.listdir(os.path.join(out, name, "log"))
+        with open(os.path.join(out, name, "log", logs[0])) as f:
+            records = [json.loads(line) for line in f]
+        return (params, [r["train_loss"] for r in records
+                         if r["event"] == "epoch"], len(logs),
+                [r["event"] for r in records].count("start"))
+
+    # the default device on one card; card 0 named where main would start
+    # a rank a card
+    visible = torch.cuda.device_count()
+    one = ["--device", "cuda" if visible < 2 else "cuda:0"]
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        run_train_torch.main(row_argv("main") + one)
+    t_main = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in said.getvalue().splitlines()
+            if ln.startswith("{")]
+    t0 = time.perf_counter()
+    run_train_torch.run_one(run_train_torch.parse_args(row_argv("direct")
+                                                       + one))
+    t_direct = time.perf_counter() - t0
+    (w1, l1, _, _), (w0, l0, _, _) = trained("main"), trained("direct")
+    equal = w1.keys() == w0.keys() and all(torch.equal(w1[k], w0[k])
+                                           for k in w0)
+    log(f"launcher: bc row of {LAUNCH_EPOCHS} epoch on data/pushing through "
+        f"run_train_torch.main {t_main:.2f} s, run_one directly "
+        f"{t_direct:.2f} s; weights bitwise equal: {equal}, losses {l1} vs "
+        f"{l0}, printed rows' ranks {[r.get('ranks') for r in rows]} "
+        f"[{card}]")
+    if not equal or l1 != l0 or [r.get("ranks") for r in rows] != [1]:
+        problems.append("run_train_torch.main at one rank differs from "
+                        "run_one")
+
+    summary = {"ranks": 1, "visible": visible}
+    if visible < 2:
+        log("phase 13: ranks 1 (one card visible)")
+    else:
+        entry = {}
+        for name, env in (("every card", None),
+                          ("card 0", {"CUDA_VISIBLE_DEVICES": "0"})):
+            d = name.replace(" ", "_")
+            row, s_train = run_entry(["run_train_torch.py", *row_argv(d)],
+                                     env)
+            ev, s_eval = run_entry(
+                ["run_eval_torch.py", "--ckpt", os.path.join(out, d, "bc.pt"),
+                 "--n-contexts", str(EVAL_CONTEXTS), "--n-trajs",
+                 str(EVAL_TRAJS), "--eval-max-steps", str(DP_SIM_STEPS)], env)
+            w, losses, n_logs, starts = trained(d)
+            log(f"launcher: {name}: run_train_torch.py {s_train:.2f} s "
+                f"(ranks {row.get('ranks')}), run_eval_torch.py "
+                f"{s_eval:.2f} s ({json.dumps(ev)}); {n_logs} log file, "
+                f"{starts} start record [{card}]")
+            if n_logs != 1 or starts != 1:
+                problems.append(f"{name}: {n_logs} log files, {starts} "
+                                "start records")
+            entry[name] = (row, ev, w, losses)
+        (row_a, ev_a, w_a, l_a), (row_1, ev_1, w_1, l_1) = entry.values()
+        w_err = max((w_a[k] - w_1[k]).abs().max().item() for k in w_1)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(l_a, l_1))
+        log(f"launcher: every card against card 0: weights max abs err "
+            f"{w_err:.3e} (tol {LAUNCH_W_TOL:g}), losses max rel err "
+            f"{l_err:.3e} (tol {LAUNCH_LOSS_RTOL:g}) [{card}]")
+        if not (w_err <= LAUNCH_W_TOL and l_err <= LAUNCH_LOSS_RTOL
+                and len(l_a) == len(l_1) == LAUNCH_EPOCHS):
+            problems.append("every card's row differs from card 0's")
+        metrics = ("success_rate", "entropy", "score")
+        if [row_a.get("ranks"), ev_a.get("ranks"), row_1.get("ranks"),
+                ev_1.get("ranks")] != [visible, visible, 1, 1] or any(
+                    ev_a[k] != ev_1[k] for k in metrics):
+            problems.append("every card's entry points differ from card "
+                            "0's in ranks or metrics")
+        summary.update(ranks=visible, weights_err=w_err, loss_err=l_err)
+
+        sims = [("bc", os.path.join(out, "direct", "bc.pt"), q_init,
+                 DP_SIM_STEPS),
+                ("gmm", gmm_ckpt, q_init, DP_SIM_STEPS)]
+        ones = launch_sims(sims)
+        t0 = time.perf_counter()
+        many = pdist.run_on_local_devices(launch_sims, sims,
+                                          nprocs=LAUNCH_RANKS, device="cuda")
+        t_ranks = time.perf_counter() - t0
+        log(f"launcher: PushingSim over {LAUNCH_RANKS} NCCL ranks in "
+            f"{t_ranks:.2f} s [{card}]")
+        summary["sims_seconds"] = round(t_ranks, 2)
+        for name, _, _, steps in sims:
+            one, got = ones[name], many[name]
+            errs = [scaled_err(a, b) for a, b in zip(got["leaves"],
+                                                     one["leaves"])
+                    if a.is_floating_point() and a.numel()]
+            finite = all(torch.isfinite(a).all() for a in got["leaves"]
+                         if a.is_floating_point())
+            shapes = [a.shape for a in got["leaves"]] == \
+                [a.shape for a in one["leaves"]]
+            in_range = all(0.0 <= v <= 1.0 for v in got["metrics"].values())
+            log(f"launcher: {name} PushingSim, {EVAL_CONTEXTS * EVAL_TRAJS} "
+                f"episodes x {steps} dynamic steps: one rank "
+                f"{one['seconds']:.2f} s ({one['metrics']}), "
+                f"{got['world']} ranks {got['seconds']:.2f} s on rank "
+                f"{got['rank']} ({got['metrics']}); final states max scaled "
+                f"err {max(errs):.3e} (tol {DP_TOL:g}"
+                f"{'' if name == 'bc' else ', not held: own draws a rank'}); "
+                f"rank 0's launches {got['launches']} (one rank "
+                f"{one['launches']}) [{card}]")
+            if got["world"] != LAUNCH_RANKS or not (finite and shapes
+                                                    and in_range):
+                problems.append(f"{name} PushingSim over {LAUNCH_RANKS} "
+                                f"ranks: world {got['world']}, finite "
+                                f"{finite}, shapes {shapes}, metrics "
+                                f"{got['metrics']}")
+            if name == "bc" and (max(errs) > DP_TOL
+                                 or got["metrics"] != one["metrics"]):
+                problems.append(f"bc PushingSim over {LAUNCH_RANKS} ranks "
+                                f"differs (err {max(errs):.3e})")
+            if got["launches"]["K1"] != steps or not \
+                    got["launches"]["K2"] == got["launches"]["K3"] == \
+                    one["launches"]["K3"]:
+                problems.append(f"{name} rank 0's launches "
+                                f"{got['launches']}")
+            summary[f"launches_{name}"] = got["launches"]
+    if problems:
+        raise SystemExit("launcher failed: " + "; ".join(problems))
+    return summary
+
+
+def launch_only():
+    """``--launch-only``: phase 1's build and phase 13's launcher part
+    alone, on a gmm trained here for one epoch; the quick check of a host
+    with several cards."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import run_train_torch
+    from d3il_tpu_torch import registry
+    from d3il_tpu_torch.kernels import build
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()} | {card}")
+    log(f"build: {json.dumps(build.build_all())}")
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "launch_gmm.pt")
+    run_train_torch.run_one(run_train_torch.make_args(
+        task="pushing", agent="gmm", device="cuda", epochs=1,
+        skip_eval=True, ckpt=ckpt, data=os.path.join(ROOT, "data")))
+    q_init = registry.TASKS["pushing"].make_params(
+        device="cuda", max_steps=DP_SIM_STEPS).q_init
+    t0 = time.perf_counter()
+    log(f"launcher: {json.dumps(launch_phase(ckpt, q_init, card))}")
+    log(f"launcher part took {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(kernels_only=False):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from d3il_tpu_torch.engine import (contact_kernel, dyn_kernel,
-                                       substep_bm)
+    from d3il_tpu_torch.engine import dyn_kernel, substep_bm
     from d3il_tpu_torch.envs import pushing
     from d3il_tpu_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2755,9 +3034,7 @@ def main(kernels_only=False):
 
     # ---- phase 3: the main path ----------------------------------------
     log(f"phase 3: {since()}")
-    counters = {"K1": dyn_kernel.ik_window_bm, "K2": dyn_kernel.arm_stage_bm,
-                "K3": contact_kernel.phase_batched_bm,
-                "K4": dyn_kernel.feedforward_bm}
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -2966,6 +3243,8 @@ def main(kernels_only=False):
     log(f"phase 13: {since()}")
     t0 = time.perf_counter()
     dp_launches = data_parallel_phase(params, dp_in, ckpt, counters, card)
+    launch = launch_phase(ckpt, params.q_init, card)
+    log(f"launcher: {json.dumps(launch)}")
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 14: report -------------------------------------------------
@@ -3002,7 +3281,9 @@ def main(kernels_only=False):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels-only"]):
+    if sys.argv[1:] not in ([], ["--kernels-only"], ["--launch-only"]):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:] == ["--launch-only"]:
+        sys.exit(launch_only())
     sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"]))

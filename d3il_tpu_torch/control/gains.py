@@ -43,3 +43,9 @@ class CartPosQuatGains:
     # needs a physical-band clamp to bound limit-cycle jitter torque
     # (control/cartesian.py notes). Configurable for experiments.
     qdd_clip: float = 25.0
+
+
+@dataclass(frozen=True)
+class DampingGains:
+    dgain: np.ndarray = field(default_factory=lambda: np.array(
+        [5.0, 5.0, 5.0, 5.0, 3.0, 2.5, 1.5]))

@@ -65,6 +65,28 @@ def to_mat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def from_mat(m: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix -> quaternion (wxyz, w >= 0), branch-free
+    Shepperd: of the four candidate quaternions, the one of the largest of
+    (trace, m00, m11, m22)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack([
+        torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                    dim=-1),
+        torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21],
+                    dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22],
+                    dim=-1)], dim=-2)                    # [..., 4, 4]
+    idx = torch.stack([tr, m00, m11, m22], dim=-1).argmax(dim=-1)
+    q = normalize(torch.take_along_dim(cands, idx[..., None, None],
+                                       dim=-2)[..., 0, :])
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def quat_error(curr: torch.Tensor, des: torch.Tensor) -> torch.Tensor:
     """Orientation error e = w_c v_d - w_d v_c - v_d x v_c, shape [..., 3]."""
     wc, vc = curr[..., :1], curr[..., 1:]

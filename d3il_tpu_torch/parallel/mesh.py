@@ -162,8 +162,10 @@ def gather_rows(mesh: DataMesh, tree):
         for i in idx:
             x = leaves[i]
             w = math.prod(x.shape[1:])
-            out[i] = full[:, off:off + w].reshape((-1,) + x.shape[1:]).to(
-                x.device, dtype)
+            # the row count spelled out: a leaf without elements (avoiding's
+            # free bodies, [B, 0, 3]) leaves -1 undetermined
+            out[i] = full[:, off:off + w].reshape(
+                (full.shape[0],) + x.shape[1:]).to(x.device, dtype)
             off += w
     it = iter(out)
     return tree_map(lambda _: next(it), tree)

@@ -3,11 +3,13 @@
 Counterpart of ``d3il_tpu/robot/chain.py``. ``Chain`` and ``ChainBuilder``
 are host NumPy (a copy of the JAX package's builder, so both packages build
 bit-identical constant arrays); ``fk``, ``_dof_frames``,
-``point_jacobian`` and ``dynamics`` run on torch tensors with any leading
-batch shape. ``dynamics`` is the JAX package's form (the body Jacobians
-and their time derivatives), which the per-env step uses; the batched
-window's dynamics (RNEA, CRBA) live in ``engine/dyn_scalar.py`` and its
-CUDA kernels.
+``point_jacobian``, ``point_jacobian_batch``, ``dynamics`` and the
+dynamics terms built on it (``mass_matrix``, ``bias_forces``,
+``gravity_forces``, ``coriolis_forces``) run on torch tensors with any
+leading batch shape. ``dynamics`` is the JAX package's form (the body
+Jacobians and their time derivatives), which the per-env step uses; the
+batched window's dynamics (RNEA, CRBA) live in ``engine/dyn_scalar.py``
+and its CUDA kernels.
 """
 from __future__ import annotations
 
@@ -205,6 +207,25 @@ def point_jacobian(chain: Chain, q: torch.Tensor, body: int, offset=None,
     return torch.cat([jp.transpose(-1, -2), jr.transpose(-1, -2)], dim=-2)
 
 
+def point_jacobian_batch(chain: Chain, q: torch.Tensor, body_idx, points,
+                         fk_cache):
+    """Geometric Jacobians of a batch of world points, each on its own
+    body: ``body_idx`` [..., n] (integer), ``points`` [..., n, 3] in world
+    coordinates, ``fk_cache`` = ``fk(chain, q)``. Returns (Jp [..., n, 3, nv],
+    Jr [..., n, 3, nv])."""
+    xpos, xquat = fk_cache
+    axes, anchors = _dof_frames(chain, xpos, xquat)                # [..,nv,3]
+    idx = torch.as_tensor(body_idx, dtype=torch.long, device=q.device)
+    mask = _const(chain.ancestor_mask, q)[idx][..., None]         # [..,n,nv,1]
+    is_hinge = _const(chain.joint_type[chain.dof_body] == HINGE, q)[:, None]
+    ax = axes[..., None, :, :]
+    jp_h = quat_ops.cross(ax, points[..., :, None, :]
+                          - anchors[..., None, :, :])             # [..,n,nv,3]
+    jp = mask * (is_hinge * jp_h + (1 - is_hinge) * ax)
+    jr = mask * is_hinge * ax
+    return jp.transpose(-1, -2), jr.transpose(-1, -2)
+
+
 def _body_jacobians(chain: Chain, q: torch.Tensor, qd: torch.Tensor):
     """COM Jacobians of all bodies, Jp and Jr [..., nb, nv, 3] (one row of
     each per dof), their time derivatives along qd, and the FK."""
@@ -254,3 +275,30 @@ def dynamics(chain: Chain, q: torch.Tensor, qd: torch.Tensor,
     f_ang = Iw_v(along(djr)) + quat_ops.cross(w, Iw_v(w))
     return (xpos, xquat), M, (torch.einsum("...bkc,...bc->...k", jp, f_lin)
                               + torch.einsum("...bkc,...bc->...k", jr, f_ang))
+
+
+def mass_matrix(chain: Chain, q: torch.Tensor) -> torch.Tensor:
+    """Joint-space inertia matrix M(q) [..., nv, nv] (CRBA's result)."""
+    return dynamics(chain, q, torch.zeros_like(q))[1]
+
+
+def bias_forces(chain: Chain, q: torch.Tensor, qd: torch.Tensor,
+                gravity=(0.0, 0.0, -9.81)) -> torch.Tensor:
+    """C(q, qd) qd + g(q) [..., nv], with the sign of MuJoCo's qfrc_bias and
+    pinocchio's rnea(q, v, 0): the generalized force that holds the chain
+    at zero acceleration."""
+    return dynamics(chain, q, qd, gravity)[2]
+
+
+def gravity_forces(chain: Chain, q: torch.Tensor,
+                   gravity=(0.0, 0.0, -9.81)) -> torch.Tensor:
+    """g(q) [..., nv]: the generalized gravity compensation torques."""
+    return bias_forces(chain, q, torch.zeros_like(q), gravity)
+
+
+def coriolis_forces(chain: Chain, q: torch.Tensor,
+                    qd: torch.Tensor) -> torch.Tensor:
+    """C(q, qd) qd [..., nv] without gravity: the bias forces with gravity
+    off (with qd = 0 every velocity term vanishes, so nothing is left to
+    subtract)."""
+    return bias_forces(chain, q, qd, gravity=(0.0, 0.0, 0.0))

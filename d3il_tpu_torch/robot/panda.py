@@ -94,3 +94,12 @@ def build_sim_chain(variant: str = "rod") -> Chain:
         parent = body["parent"] if body["parent"] != "world" else None
         b.add_body(body["name"], parent, **kw)
     return b.build()
+
+
+def sim_geoms(variant: str = "rod"):
+    """Collision-relevant primitive geoms of the sim robot (those with a
+    contype or conaffinity), each a dict with its body's name."""
+    spec = C.MJCF_PANDA_ROD if variant == "rod" else C.MJCF_PANDA_GRIPPER
+    return [{"body": body["name"], **g} for body in spec["bodies"]
+            for g in body["geoms"]
+            if g["contype"] != 0 or g["conaffinity"] != 0]

@@ -10,8 +10,13 @@ plus --device (default cuda). Every (task, agent, seed) row trains and
 evaluates in its own subprocess of run_train_torch.py, with the task's
 tuned defaults (registry.TaskSpec.train_kw) under the flags given here,
 and appends its metrics row (the JAX package's schema, plus
-wall_seconds) to <out>/results.jsonl. Rows already recorded are skipped,
-so the sweep resumes; a row that failed carries an "error" and runs again.
+wall_seconds and the row's own ranks, the number of ranks it ran on:
+every visible GPU, as a JAX row uses every local chip) to
+<out>/results.jsonl. Rows already recorded are skipped, so the sweep
+resumes; a row that failed carries an "error" and runs again. A
+stochastic agent's metrics depend on the number of ranks as well as the
+seed (run_train_torch.py says why), so one results file holds rows of one
+rank count: a sweep that would run on another count stops.
 Its own output directory keeps it apart from the JAX package's results/.
 """
 from __future__ import annotations
@@ -28,6 +33,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from d3il_tpu_torch import registry  # noqa: E402
+from d3il_tpu_torch.parallel import distributed as pdist  # noqa: E402
 
 
 def row_argv(over: dict) -> list:
@@ -57,9 +63,11 @@ def _run_row(over: dict) -> dict:
     return json.loads(lines[-1])
 
 
-def load_done(path):
+def load_done(path, ranks=1):
     """(task, agent, seed) of every recorded row; rows with an "error" are
-    left out, so that the next sweep runs them again."""
+    left out, so that the next sweep runs them again. A recorded row that
+    ran on another number of ranks than ``ranks`` (a row without the field
+    ran on one) stops the sweep."""
     done = set()
     if os.path.exists(path):
         with open(path) as f:
@@ -70,6 +78,12 @@ def load_done(path):
                     continue
                 if "error" in r:
                     continue
+                if r.get("ranks", 1) != ranks:
+                    raise SystemExit(
+                        f"{path} holds rows run on {r.get('ranks', 1)} "
+                        f"ranks, this sweep runs on {ranks}: give another "
+                        "--out, or choose the cards with "
+                        "CUDA_VISIBLE_DEVICES or --device cuda:<k>")
                 done.add((r.get("task"), r.get("agent"), r.get("seed")))
     return done
 
@@ -103,7 +117,10 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, "results.jsonl")
-    done = set() if args.rerun else load_done(path)
+    # each row's subprocess starts this many ranks (run_train_torch.main)
+    done = load_done(path, pdist.local_world(args.device))
+    if args.rerun:
+        done = set()
 
     for task in args.tasks:
         if not os.path.exists(os.path.join(args.data, task,

@@ -5,7 +5,11 @@
 Counterpart of run_eval.py for d3il_tpu_torch: loads the checkpoint written
 by run_train_torch.py --ckpt (params + scaler statistics + agent
 hyperparameters), rebuilds the agent, and runs the batched on-device
-evaluation sim. Runs on the GPU unless --device cpu is given.
+evaluation sim. Runs on the GPU unless --device cpu is given: on every
+visible GPU, one rank per card (run_train_torch.py says how), each rank
+rolling out its share of the context x trajectory grid; rank 0 prints the
+row, with the ``ranks`` it ran on. A stochastic policy's metrics depend on
+the number of cards as well as --seed (run_train_torch.py says why).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from d3il_tpu_torch import registry  # noqa: E402
 from d3il_tpu_torch.agents import base as agent_base  # noqa: E402
 from d3il_tpu_torch.data.scaler import Scaler  # noqa: E402
 from d3il_tpu_torch.envs.common import resolve_device  # noqa: E402
+from d3il_tpu_torch.parallel import distributed as pdist  # noqa: E402
 import run_train_torch  # noqa: E402
 
 
@@ -52,7 +57,7 @@ def load_agent(ckpt_path: str, device=None):
     return spec, agent, meta
 
 
-def main():
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--n-contexts", type=int, default=None)
@@ -62,8 +67,12 @@ def main():
     ap.add_argument("--kinematic", action="store_true", default=False)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
-    args = ap.parse_args()
+    return ap
 
+
+def run(args) -> dict:
+    """Load the checkpoint and evaluate it; returns the metrics row. Under
+    a process group every rank calls it and reads the checkpoint."""
     spec, agent, meta = load_agent(args.ckpt, args.device)
     tk = spec.train_kw
     eargs = argparse.Namespace(
@@ -72,8 +81,16 @@ def main():
         n_contexts=args.n_contexts or tk.get("n_contexts", 15),
         n_trajs=args.n_trajs or tk.get("n_trajs", 8))
     out = run_train_torch.evaluate(spec, agent, eargs)
-    print(json.dumps({"task": meta["task"], "agent": meta["agent"],
-                      "seed": int(meta["seed"]), **out}))
+    return {"task": meta["task"], "agent": meta["agent"],
+            "seed": int(meta["seed"]), "ranks": pdist.process_count(), **out}
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    row = pdist.run_on_local_devices(run, args,
+                                     nprocs=pdist.local_world(args.device),
+                                     device=args.device)
+    print(json.dumps(row))
 
 
 if __name__ == "__main__":

@@ -12,7 +12,17 @@ padded device tensors -> Scaler -> minibatch training -> batched on-device
 rollout evaluation (all episodes in lockstep) -> success/entropy metrics +
 checkpoint. Evaluation runs the full arm dynamics by default; pass
 --kinematic for the fast kinematic-arm mode. Runs on the GPU unless
---device cpu is given.
+--device cpu is given: on every visible GPU (CUDA_VISIBLE_DEVICES chooses
+them), one rank per card joined by NCCL, as run_train.py uses every local
+chip; --device cuda:<k> runs on card k alone. Every rank trains on its
+share of each minibatch and rolls out its share of the episodes; rank 0
+alone writes the checkpoint and the log, and prints the row, whose
+``ranks`` is the number of ranks it ran on. An agent that draws noise
+(gmm, ddpm, beso, ...) draws it from a generator of each rank's own, so
+one --seed gives another model and other metrics on another number of
+cards (run_train.py draws one stream whatever its chip count); a
+deterministic agent (bc) agrees across card counts to float rounding.
+Pass --device cuda:0 to reproduce a one-card run on a host with more.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from d3il_tpu_torch.agents import base as agent_base  # noqa: E402
 from d3il_tpu_torch.data import dataset as ds  # noqa: E402
 from d3il_tpu_torch.data.scaler import Scaler  # noqa: E402
 from d3il_tpu_torch.envs.common import resolve_device  # noqa: E402
+from d3il_tpu_torch.parallel import distributed as pdist  # noqa: E402
 from d3il_tpu_torch.utils import logging as run_logging  # noqa: E402
 
 
@@ -158,14 +169,18 @@ def save_agent(args, agent):
 
 
 def run_one(args) -> dict:
-    """Train + evaluate one (task, agent, seed); returns the metrics row."""
+    """Train + evaluate one (task, agent, seed); returns the metrics row.
+    Under a process group every rank calls it; rank 0 alone writes the
+    checkpoint and the log."""
     device = resolve_device(args.device)
+    lead = pdist.process_index() == 0
     generator = torch.Generator(device=device).manual_seed(args.seed)
     spec, agent, ema, train_data, val_data = build_agent_and_data(
         args, generator)
 
     logger = run_logging.RunLogger(
-        run_dir=args.log_dir, name=f"{args.task}_{args.agent}_s{args.seed}")
+        run_dir=args.log_dir if lead else None,
+        name=f"{args.task}_{args.agent}_s{args.seed}")
     cfg = agent_base.TrainConfig(epochs=args.epochs,
                                  batch_size=args.batch_size,
                                  window_size=args.window,
@@ -179,7 +194,7 @@ def run_one(args) -> dict:
     print(f"training done in {train_seconds:.1f}s, "
           f"final loss {hist[-1]['train_loss']:.5f}")
     agent.params = best
-    if args.ckpt:
+    if args.ckpt and lead:
         save_agent(args, agent)
 
     result = {}
@@ -189,7 +204,7 @@ def run_one(args) -> dict:
            "eval_mode": "kinematic" if args.kinematic else "dynamic",
            "data": args.data, "device": str(device),
            "date": time.strftime("%Y-%m-%d", time.gmtime()),
-           "train_seconds": train_seconds,
+           "ranks": pdist.process_count(), "train_seconds": train_seconds,
            "final_train_loss": round(float(hist[-1]["train_loss"]), 6),
            **result}
     logger.log({"event": "result", **row})
@@ -251,8 +266,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main():
-    print(json.dumps(run_one(parse_args())))
+def main(argv=None):
+    args = parse_args(argv)
+    row = pdist.run_on_local_devices(run_one, args,
+                                     nprocs=pdist.local_world(args.device),
+                                     device=args.device)
+    print(json.dumps(row))
 
 
 if __name__ == "__main__":

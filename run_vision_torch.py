@@ -19,7 +19,12 @@ them in the form run_eval_torch.py reloads.
 The vision agents render both cameras on the device from the state
 observation (d3il_tpu_torch/vision/taskviews.py), so training reads the
 ordinary state datasets and evaluation runs the ordinary batched sims.
-Runs on the GPU unless --device cpu is given.
+Runs on the GPU unless --device cpu is given: on every visible GPU, one
+rank per card (run_train_torch.py says how); every rank scores the same
+gathered rollouts, so all select the same epoch, and rank 0 alone prints
+the selection, saves and prints the row, with the ``ranks`` it ran on. A
+stochastic agent's model and metrics depend on the number of cards as
+well as --seed (run_train_torch.py says why).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch  # noqa: E402
 from d3il_tpu_torch import registry  # noqa: E402
 from d3il_tpu_torch.agents import base as agent_base  # noqa: E402
 from d3il_tpu_torch.envs.common import resolve_device  # noqa: E402
+from d3il_tpu_torch.parallel import distributed as pdist  # noqa: E402
 import run_train_torch  # noqa: E402
 
 
@@ -66,10 +72,11 @@ def make_args(**overrides) -> argparse.Namespace:
 
 def run(args) -> dict:
     """Train with rollout-based selection, save, evaluate; returns the
-    metrics row."""
+    metrics row. Under a process group every rank calls it."""
     if not registry.AGENTS[args.agent].vision:
         raise ValueError(f"--agent {args.agent} is not a vision agent")
     device = resolve_device(args.device)
+    lead = pdist.process_index() == 0
     generator = torch.Generator(device=device).manual_seed(args.seed)
     spec, agent, ema, train_data, val_data = \
         run_train_torch.build_agent_and_data(args, generator)
@@ -86,8 +93,9 @@ def run(args) -> dict:
         agent.params = params
         sr = run_train_torch.evaluate(spec, agent, sel_args).get(
             "success_rate", 0.0)
-        print(f"[select] epoch {epoch + 1}: success {sr:.3f} "
-              f"(best {best['success']:.3f} @ {best['epoch'] + 1})")
+        if lead:
+            print(f"[select] epoch {epoch + 1}: success {sr:.3f} "
+                  f"(best {best['success']:.3f} @ {best['epoch'] + 1})")
         if sr > best["success"]:
             best.update(success=sr, epoch=epoch,
                         params={k: v.detach().clone()
@@ -105,12 +113,13 @@ def run(args) -> dict:
     train_seconds = round(time.time() - t0, 1)
     agent.params = best["params"] if best["epoch"] >= 0 else final
 
-    if args.ckpt:
+    if args.ckpt and lead:
         run_train_torch.save_agent(args, agent)
     result = {} if args.skip_eval else run_train_torch.evaluate(spec, agent,
                                                                 args)
     return {"task": args.task, "agent": args.agent, "seed": args.seed,
-            "device": str(device), "train_seconds": train_seconds,
+            "device": str(device), "ranks": pdist.process_count(),
+            "train_seconds": train_seconds,
             "selected_epoch": best["epoch"] + 1,
             "selected_success": best["success"], **result}
 
@@ -124,7 +133,9 @@ def main(argv=None):
     for k, v in registry.TASKS[args.task].train_kw.items():
         if "--" + k.replace("_", "-") not in passed:
             setattr(args, k, v)
-    print(json.dumps(run(args)))
+    print(json.dumps(pdist.run_on_local_devices(
+        run, args, nprocs=pdist.local_world(args.device),
+        device=args.device)))
 
 
 if __name__ == "__main__":

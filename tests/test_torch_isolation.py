@@ -4,9 +4,13 @@ In a fresh interpreter with ``sys.modules["jax"] = None`` (so any
 ``import jax`` raises; likewise jaxlib, flax, optax, orbax), every module of
 d3il_tpu_torch and the four entry scripts must import, and no ``d3il_tpu``
 module may have been loaded; likewise tools/gen_demos_torch.py and
-tools/render_video_torch.py. chip_smoke.py, the entry scripts and the tools
-are also read for such imports, since chip_smoke.py imports the port only
-once it has found a card.
+tools/render_video_torch.py. The entry points' launcher
+(``parallel/distributed.run_on_local_devices``) then starts two ranks,
+fresh interpreters without that ban, and each imports the launcher and the
+three entry scripts and reports every JAX or ``d3il_tpu`` module it has
+loaded: none. chip_smoke.py, the entry scripts and the tools are also read
+for such imports, since chip_smoke.py imports the port only once it has
+found a card.
 """
 import os
 import subprocess
@@ -15,6 +19,19 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r'''
+import sys
+
+
+def loaded():
+    """(world size, the JAX and d3il_tpu modules this rank has loaded)."""
+    import torch.distributed as dist
+    import run_eval_torch, run_train_torch, run_vision_torch
+    return dist.get_world_size(), sorted(
+        m for m in sys.modules if m.split(".")[0] in
+        ("jax", "jaxlib", "flax", "optax", "orbax", "d3il_tpu"))
+'''
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
@@ -47,6 +64,18 @@ for want in ("envs.aligning", "envs.sorting", "envs.avoiding",
              "envs.common", "ops.spline", "utils.channel_logger",
              "parallel.mesh", "parallel.distributed"):
     assert "d3il_tpu_torch." + want in names, want
+# the launcher of the entry points: two gloo ranks, each a fresh process
+# (no ban there) that imports the entry scripts and lists what it loaded
+import tempfile
+from d3il_tpu_torch.parallel import distributed as pdist
+assert pdist.local_world("cpu") == 1
+with tempfile.TemporaryDirectory() as probe_dir:
+    with open(f"{probe_dir}/jax_probe.py", "w") as f:
+        f.write(sys.argv[1])        # PROBE
+    sys.path.insert(0, probe_dir)
+    import jax_probe
+    assert pdist.run_on_local_devices(jax_probe.loaded, nprocs=2,
+                                      device="cpu") == (2, [])
 bad = sorted(m for m in sys.modules if m == "d3il_tpu" or m.startswith("d3il_tpu."))
 assert not bad, bad
 assert len(names) >= 50, names
@@ -56,8 +85,8 @@ print("ok", len(names))
 
 def test_port_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-c", SCRIPT, PROBE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
 
@@ -91,6 +120,7 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
     from d3il_tpu_torch import convert
     from d3il_tpu_torch.envs import common, pushing
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         common.resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -118,6 +148,13 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
     import run_eval_torch
     import run_train_torch
     assert run_train_torch.make_args().device == "cuda"
+    # with no card, one rank, which raises
+    from d3il_tpu_torch.parallel import distributed
+    assert distributed.local_world() == 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_train_torch.main(["--task", "pushing"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_eval_torch.main(["--ckpt", "missing.pt"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train_torch.run_one(run_train_torch.make_args(agent="gmm"))
     with pytest.raises(RuntimeError, match="no CUDA device"):

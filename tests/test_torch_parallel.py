@@ -3,7 +3,8 @@ processes joined by gloo on the CPU, and its row arithmetic against the
 JAX package's ``d3il_tpu.parallel``.
 
 The workers import only ``d3il_tpu_torch``. One spawn of three ranks holds
-``run_sharded`` at B = 11 over three ranks and, on a group of ranks 0 and
+``run_sharded`` at B = 11 over three ranks (also with an output leaf of
+no columns, as avoiding's free bodies) and, on a group of ranks 0 and
 1, over two; on that pair, the pushing step sharded against the
 one-process step (the JAX test's 1e-5, ``tests/test_parallel.py:54-57``)
 and the bc ``fit`` of ``tests/test_parallel.py:73-109`` against one
@@ -93,6 +94,11 @@ ctx = pushing.sample_context(torch.Generator().manual_seed(1), 11)
 one = reset(ctx)
 out = {"rank": world.rank, "world": world.world,
        "rows_over_3": err(pmesh.run_sharded(reset, ctx, mesh=world), one)}
+# a leaf without columns, as avoiding's free bodies ([B, 0, 3])
+empty = lambda r: (r, r.new_zeros(r.shape[0], 0, 3))
+rows = torch.arange(33.0).reshape(11, 3)
+out["empty_leaf"] = err(pmesh.run_sharded(empty, rows, mesh=world),
+                        empty(rows))
 if pair is not None:
     out["rows_over_2"] = err(pmesh.run_sharded(reset, ctx, mesh=pair), one)
     ctx4 = pushing.sample_context(torch.Generator().manual_seed(0), 4)
@@ -132,6 +138,7 @@ def test_sharded_step_rows_and_fit_over_gloo_ranks(tmp_path):
         # B = 11 over 3 ranks (one padded row) and over 2 (one padded row):
         # the one-process rows, shapes included
         assert o["rows_over_3"] == 0.0
+        assert o["empty_leaf"] == 0.0
     for o in outs[:2]:
         assert o["rows_over_2"] == 0.0
         assert o["step_q"] <= 1e-5 and o["step_free_pos"] <= 1e-5, o

@@ -8,7 +8,8 @@ subprocess would, then ``run_train_torch.run_one``, on the registry patched
 as tests/test_torch_entry.py patches it (a 2-substep window at the JAX
 package's start posture); a subprocess would not see that patch. Then a
 second sweep skips both rows, a failed row is recorded with its error and
-run again by the next sweep, and tools/make_results.py renders the rows.
+run again by the next sweep, a sweep on another number of ranks stops at
+the file, and tools/make_results.py renders the rows.
 """
 import dataclasses
 import importlib.util
@@ -76,6 +77,7 @@ def test_sweep_runs_skips_retries_and_renders(small_pushing, tmp_path,
     for r in rows:
         assert r["device"] == "cpu" and r["eval_mode"] == "kinematic"
         assert r["wall_seconds"] > 0 and np.isfinite(r["final_train_loss"])
+        assert r["ranks"] == 1          # the row's own: the CPU, one rank
         assert all(0.0 <= r[k] <= 1.0
                    for k in ("success_rate", "entropy", "score"))
     # the row's flags over the task's train_kw (epochs 100, 30 x 16)
@@ -99,6 +101,10 @@ def test_sweep_runs_skips_retries_and_renders(small_pushing, tmp_path,
     assert "error" not in rows[3] and rows[3]["seed"] == 2
     assert run_benchmark_torch.load_done(path) == {
         ("pushing", "bc", s) for s in (0, 1, 2)}
+    # rows of one rank count do not mix with another's
+    with pytest.raises(SystemExit, match="run on 1 ranks, this sweep runs "
+                       "on 2"):
+        run_benchmark_torch.load_done(path, ranks=2)
 
     # tools/make_results.py renders the rows, --in and --out explicit
     spec = importlib.util.spec_from_file_location(
