@@ -1,0 +1,6 @@
+"""K2: the least time its calls' work needs at the card's peaks, over K2's
+device time in the traced steps, in percent."""
+
+
+def read(r):
+    return r.roofline("k2")
